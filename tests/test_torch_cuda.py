@@ -1,0 +1,95 @@
+"""The port's CUDA kernels (zolt_tpu_torch/csrc) against their plain torch
+versions, on the GPU.
+
+These tests need a CUDA device and nvcc, and skip without them. The GPU
+machine has no JAX, so run them there without the suite's conftest (which
+imports JAX):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+chip_smoke.py holds each kernel to its plain version at the main path's
+shapes; these add the shapes the path does not produce: live prefixes that
+are not powers of two, a single pair, degrees 0-3, and tables large enough
+that every thread walks several grid strides. Tolerance: exact (equal
+words), since every value is a canonical field element.
+"""
+
+import pytest
+import torch
+
+from zolt_tpu_torch.field import evals, fold, gruen
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on a GPU")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20261016)
+    return g
+
+
+def _tables(gen, k: int, n: int, live: int) -> torch.Tensor:
+    """(k, n, 8) canonical Montgomery words (top 3 bits clear: < 2^253 < p),
+    zero behind the first `live` entries."""
+    w = torch.randint(-2 ** 31, 2 ** 31, (k, n, 8), dtype=torch.int64,
+                      device="cuda", generator=gen).to(torch.int32)
+    w[..., 7] &= 0x1FFFFFFF
+    w[:, live:] = 0
+    return w.contiguous()
+
+
+@pytest.mark.parametrize("k,n,live_pairs", [
+    (1, 2, 1), (2, 1000, 37), (3, 4096, 2048), (2, 1 << 21, 1 << 20)])
+def test_fold_kernel_matches_plain(gen, k, n, live_pairs):
+    tabs = _tables(gen, k, n, 2 * live_pairs)
+    r = 0x2A5C_1234_5678_9ABC_DEF0_1122_3344_5566
+    before = fold.fold.launches
+    got = fold.fold(tabs, r, live_pairs)
+    torch.cuda.synchronize()
+    assert fold.fold.launches == before + 1
+    assert torch.equal(got, fold.fold_plain(tabs, r, live_pairs))
+    assert not got[:, live_pairs:].any()
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("live_pairs", [0, 1, 37, 1000, 1 << 18])
+def test_product_evals_kernels_match_plain(gen, k, live_pairs):
+    n = max(2048, 2 * live_pairs)
+    tabs = _tables(gen, k, n, 2 * live_pairs)
+    for degree in range(evals.MAX_DEGREE + 1):
+        before = dict(evals.product_evals.launches)
+        got = evals.product_evals(tabs, live_pairs, degree)
+        torch.cuda.synchronize()
+        before[k] += 1
+        assert evals.product_evals.launches == before
+        assert torch.equal(got,
+                           evals.product_evals_plain(tabs, live_pairs, degree))
+
+
+@pytest.mark.parametrize("live_pairs,h_in,off_out,off_in", [
+    (1, 0, 0, 0), (5, 1, 3, 1), (300, 3, 5, 2), (1 << 17, 9, 1, 511)])
+def test_gruen_kernel_matches_plain(gen, live_pairs, h_in, off_out, off_in):
+    n = 2 * live_pairs
+    ab = _tables(gen, 2, n, n)
+    e_out = _tables(gen, 1, off_out + ((live_pairs - 1) >> h_in) + 1,
+                    1 << 30)[0]
+    e_in = _tables(gen, 1, off_in + (1 << h_in), 1 << 30)[0]
+    args = (ab[0], ab[1], e_out, e_in, off_out, off_in, h_in, live_pairs)
+    before = gruen.gruen_eval.launches
+    got = gruen.gruen_eval(*args)
+    torch.cuda.synchronize()
+    assert gruen.gruen_eval.launches == before + 1
+    assert torch.equal(got, gruen.gruen_eval_plain(*args))
+
+
+def test_wrappers_refuse_misaligned_tables(gen):
+    base = _tables(gen, 1, 2 * 16 * 8 + 1, 0).reshape(-1)
+    tabs = base[1: 1 + 2 * 16 * 8].view(2, 16, 8)     # 4-byte offset
+    assert tabs.is_contiguous() and tabs.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fold.fold(tabs, 3, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        evals.product_evals(tabs, 8, 2)

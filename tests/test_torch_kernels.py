@@ -1,0 +1,257 @@
+"""The port's kernel modules against the JAX package's TPU kernels.
+
+Each of the four CUDA kernels (zolt_tpu_torch/csrc) has a plain torch
+version beside its wrapper (field/fold.py, field/evals.py, field/gruen.py).
+Here, on the CPU, the wrappers run those plain versions, and the same
+numpy-seeded tables go through the JAX function the kernel replaces: the
+Pallas kernels run in interpret mode (as tests/test_pallas_redc.py runs
+them), and the host C tier (FrVec) besides. The XLA forms the engines run
+(stage_engine._evals_fixed, device_outer._eval_fixed) are held to the plain
+kernels in tests/test_torch_engine.py, beside the JAX engines that compile
+the same programs. Tolerance: exact (byte-equal words); all of this is
+integer field arithmetic. The kernels themselves are held to these plain
+versions on the GPU by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from zolt_tpu.field import mxu
+from zolt_tpu.field import pallas_redc as pr
+from zolt_tpu.field.limb import FR_C as JFR_C
+from zolt_tpu.parallel import stage_engine as jse
+from zolt_tpu_torch.field import evals, fold, gruen, limb
+from zolt_tpu_torch.field.params import FR
+from zolt_tpu_torch.native.frvec import FrVec
+
+P = FR.p
+
+
+def _ints(seed: int, n: int) -> list[int]:
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(40), "little") % P for _ in range(n)]
+
+
+def _tables(seed: int, k: int, n: int, live: int) -> torch.Tensor:
+    """(k, n, 8) Montgomery words of seeded values, zero behind `live`."""
+    rows = []
+    for j in range(k):
+        xs = _ints(seed + j, live) + [0] * (n - live)
+        rows.append(limb.encode(xs))
+    return torch.stack(rows)
+
+
+def _jax(t: torch.Tensor):
+    return jnp.asarray(limb.to_jax_limbs(t))
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Run pallas_redc's kernels under the Pallas interpreter (CPU)."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def interp_call(*a, **k):
+        k.setdefault("interpret", True)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pr.pl, "pallas_call", interp_call)
+
+
+# -- kernel 1: fold ----------------------------------------------------------
+
+def test_fold_matches_pallas_fold_tail(interpret):
+    n, r = 64, 0xBEEF1234 % P
+    tp = jnp.asarray(pr.fold_toeplitz(FR.mont(r)).T.copy())
+    tab = _tables(11, 1, n, n)
+    ref = _jax(tab[0])
+    live = n
+    while live >= 8 * pr._SLOTS:
+        tab = fold.fold(tab, r, live // 2)
+        ref = pr.fold_tail(ref, tp, live // 2, JFR_C)
+        live //= 2
+        assert torch.equal(tab[0], limb.from_jax_limbs(np.asarray(ref)))
+        assert not tab[0, live:].any()
+
+
+def test_fold_matches_pallas_fold_tail_stack(interpret):
+    n, r = 64, 424242
+    tp = jnp.asarray(pr.fold_toeplitz(FR.mont(r)).T.copy())
+    tabs = _tables(12, 3, n, n)
+    for live_pairs in (32, 16):
+        got = fold.fold(tabs, r, live_pairs)
+        ref = pr.fold_tail_stack(_jax(tabs), tp, live_pairs, JFR_C)
+        assert torch.equal(got, limb.from_jax_limbs(np.asarray(ref)))
+        tabs = got
+
+
+def test_fold_matches_pallas_fold_rows_stack(interpret):
+    """The packed-row engine fold: (k, n/8, 128) rows hold the same byte
+    stream as (k, n, 16) limbs, so a reshape compares the two."""
+    n, r = 64, 55555
+    tp = jnp.asarray(pr.fold_toeplitz(FR.mont(r)).T.copy())
+    tabs = _tables(15, 2, n, n)
+    for live_pairs in (32, 16):
+        got = fold.fold(tabs, r, live_pairs)
+        rows = _jax(tabs).reshape(2, n // 8, 128)
+        ref = np.asarray(pr.fold_rows_stack(rows, tp, live_pairs, JFR_C))
+        assert torch.equal(got, limb.from_jax_limbs(ref.reshape(2, n, 16)))
+        tabs = got
+
+
+def test_fold_matches_fold_shared_xla_form():
+    """The superseded whole-table fold, pallas_redc.fold_shared, is kernel 1
+    with every pair live. Its kernel's bf16 x bf16 -> f32 dot does not run
+    on XLA:CPU even in interpret mode, so kernel 1 is held to the XLA form
+    fold_shared is specified bit-identical to, mxu.fold_shared."""
+    n, r = 64, 0xC0FFEE
+    tab = _tables(16, 1, n, n)
+    ref = mxu.fold_shared(_jax(tab[0]),
+                          jnp.asarray(mxu.scalar_toeplitz(FR.mont(r))), JFR_C)
+    got = fold.fold(tab, r, n // 2)
+    assert torch.equal(got[0, : n // 2],
+                       limb.from_jax_limbs(np.asarray(ref)))
+
+
+def test_fold_matches_frvec_fold_adj_down_to_one_pair():
+    n, r = 32, 987654321
+    tabs = _tables(13, 2, n, n)
+    host = [limb.words_to_frvec(tabs[j]) for j in range(2)]
+    live = n
+    while live > 1:
+        tabs = fold.fold(tabs, r, live // 2)
+        host = [v.fold_adj(r) for v in host]
+        live //= 2
+        for j in range(2):
+            assert torch.equal(tabs[j, :live], limb.frvec_to_words(host[j]))
+        assert not tabs[:, live:].any()
+
+
+def test_fold_checks_its_inputs():
+    tabs = _tables(14, 2, 8, 8)
+    with pytest.raises(ValueError):
+        fold.fold(tabs, 5, 5)                       # live past n/2
+    with pytest.raises(ValueError):
+        fold.fold(tabs[:, :7], 5, 2)                # odd n
+    with pytest.raises(ValueError):
+        fold.fold(tabs.transpose(0, 1), 5, 1)       # not (k, n, 8) contiguous
+    with pytest.raises(ValueError, match="no kernel"):
+        fold.fold(torch.empty((2, 8, 8), dtype=torch.int32, device="meta"),
+                  5, 4)                              # no CPU fallback
+
+
+# -- kernels 2-3: product evals ---------------------------------------------
+
+@pytest.mark.parametrize("degree", [2, 3])
+def test_evals_k2_matches_pallas_eval_rows_k2(interpret, degree):
+    n, live = 2048, 1200                             # smallest legal rows: 256
+    tabs = _tables(21, 2, n, live)
+    got = evals.product_evals(tabs, n // 2, degree)
+    rows = [_jax(tabs[j]).reshape(n // 8, 128) for j in range(2)]
+    flat = np.asarray(pr.eval_rows_k2(*rows)).reshape(-1)
+    ref = pr.decode_eval_rows_k2(flat, degree, P, jse._R_INV2)
+    assert limb.decode(got) == ref
+    host = [limb.words_to_frvec(tabs[j, :live]) for j in range(2)]
+    assert ref == FrVec.prod_evals_adj(host, degree)
+
+
+@pytest.mark.parametrize("degree", [2, 3])
+def test_evals_k3_matches_pallas_eval_rows_k3(interpret, degree):
+    n, live = 64, 40                                 # smallest legal rows: 8
+    tabs = _tables(31, 3, n, live)
+    got = evals.product_evals(tabs, n // 2, degree)
+    rows = [_jax(tabs[j]).reshape(n // 8, 128) for j in range(3)]
+    flat = np.asarray(pr.eval_rows_k3(*rows)).reshape(-1)
+    ref = pr.decode_eval_rows_k3(flat, degree, P, jse._R_INV3)
+    assert limb.decode(got) == ref
+
+
+@pytest.mark.parametrize("k,degree", [(2, 2), (2, 3), (3, 3)])
+def test_evals_match_frvec_down_to_one_pair(k, degree):
+    n = 64
+    live = n
+    while live >= 2:
+        tabs = _tables(41 + live, k, n, live)
+        got = evals.product_evals(tabs, live // 2, degree)
+        host = [limb.words_to_frvec(tabs[j, :live]) for j in range(k)]
+        assert limb.decode(got) == FrVec.prod_evals_adj(host, degree)
+        live //= 2
+
+
+def test_evals_wrapper_checks_k_and_degree():
+    tabs = _tables(51, 3, 8, 8)
+    with pytest.raises(ValueError):
+        evals.product_evals(tabs, 4, 4)
+    with pytest.raises(ValueError, match="k = 2, 3"):
+        evals.product_evals(_tables(52, 4, 8, 8), 4, 2)
+    with pytest.raises(ValueError, match="k = 2, 3"):
+        evals.product_evals(tabs[:1], 4, 2)
+    assert limb.decode(evals.product_evals(tabs, 0, 3)) == [0, 0, 0, 0]
+
+
+# -- kernel 4: Gruen eq-weighted round ----------------------------------------
+
+def _gruen_case(seed: int, n: int, live: int, levels_out: int = 4,
+                levels_in: int = 3):
+    """az/bz with `live` live pairs and flat E_out/E_in stacks of 4 and 3
+    levels (by default the stacks of a 6-variable split eq); the round's
+    level offsets put the low bits of the pair index on E_in."""
+    ab = _tables(seed, 2, n, 2 * live)
+    e_out = limb.encode(_ints(seed + 7, (1 << levels_out) - 1))
+    e_in = limb.encode(_ints(seed + 8, (1 << levels_in) - 1))
+    lg = live.bit_length() - 1
+    h_in = min(levels_in - 1, lg)
+    lvl_out = lg - h_in
+    return ab, e_out, e_in, (1 << lvl_out) - 1, (1 << h_in) - 1, h_in, lvl_out
+
+
+def test_gruen_matches_frvec_gruen_quad():
+    """Kernel 4 against the host C tier's eq-weighted round. (Its JAX
+    forms: device_outer._eval_fixed is held to it in
+    tests/test_torch_engine.py; pallas_kernels.product_round does not finish
+    under the Pallas interpreter on the CPU within 40 minutes, since it
+    walks the unrolled kernel op by op, which is why tests/test_frvec.py
+    gates its own product_round test. Its fold half is kernel 1, held to
+    the fold kernels above.)"""
+    n = 64
+    for live in (32, 8, 1):
+        ab, e_out, e_in, off_out, off_in, h_in, lvl_out = _gruen_case(
+            61 + live, n, live)
+        got = gruen.gruen_eval(ab[0], ab[1], e_out, e_in, off_out, off_in,
+                               h_in, live)
+        host = FrVec.gruen_quad(
+            limb.words_to_frvec(e_out[off_out: off_out + (1 << lvl_out)]),
+            limb.words_to_frvec(e_in[off_in: off_in + (1 << h_in)]), h_in,
+            limb.words_to_frvec(ab[0, : 2 * live]),
+            limb.words_to_frvec(ab[1, : 2 * live]), live)
+        assert tuple(limb.decode(got)) == tuple(host)
+
+
+def test_gruen_checks_its_inputs():
+    ab, e_out, e_in, off_out, off_in, h_in, _ = _gruen_case(81, 16, 8)
+    with pytest.raises(ValueError, match="offsets"):
+        gruen.gruen_eval(ab[0], ab[1], e_out, e_in, e_out.shape[0],
+                         off_in, h_in, 8)
+    with pytest.raises(ValueError, match="offsets"):
+        gruen.gruen_eval(ab[0], ab[1], e_out, e_in, off_out, e_in.shape[0],
+                         h_in, 8)
+    with pytest.raises(ValueError):
+        gruen.gruen_eval(ab[0], ab[1][:8], e_out, e_in, off_out, off_in,
+                         h_in, 4)
+
+
+def test_cpu_calls_launch_no_kernel():
+    counts = (fold.fold.launches, dict(evals.product_evals.launches),
+              gruen.gruen_eval.launches)
+    tabs = _tables(91, 3, 8, 8)
+    fold.fold(tabs, 3, 4)
+    evals.product_evals(tabs[:2].contiguous(), 4, 2)
+    evals.product_evals(tabs, 4, 3)
+    ab, e_out, e_in, off_out, off_in, h_in, _ = _gruen_case(92, 16, 8)
+    gruen.gruen_eval(ab[0], ab[1], e_out, e_in, off_out, off_in, h_in, 8)
+    assert counts == (fold.fold.launches, evals.product_evals.launches,
+                      gruen.gruen_eval.launches)

@@ -1,0 +1,205 @@
+"""BN254 field arithmetic on torch tensors.
+
+An element is a `torch.int32` tensor of shape (..., 8): eight little-endian
+32-bit words of its Montgomery form with R = 2^256. These are the same 32
+bytes the host FrVec tier holds (native/frvec.py) and the same residue as
+the JAX package's (..., 16) u16-in-u32 limbs (zolt_tpu/field/limb.py), so
+moving data between the three is a byte reinterpretation.
+
+The arithmetic below is the plain torch reference for the CUDA kernels of
+csrc/ and the device code of parallel/ and zkvm/device_outer.py. It splits
+words into 16 limbs of 16 bits held in int64, where every partial product
+and column sum is exact, and runs unchanged on CPU or CUDA tensors. torch's
+unsigned 32-bit support is partial (especially on CUDA), so words keep
+int32 bit patterns and every right shift is masked. Every function returns
+canonical residues (< p), so results are byte-identical to any other exact
+implementation.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .params import FP, FR, R, FieldParams
+
+_MASK16 = 0xFFFF
+_MASK32 = 0xFFFFFFFF
+
+
+class FieldConst(NamedTuple):
+    name: str
+    params: FieldParams
+    p16: tuple[int, ...]     # modulus, 16 little-endian 16-bit limbs
+    inv: int                 # -p^{-1} mod 2^16
+
+
+def _mk_const(fp: FieldParams) -> FieldConst:
+    return FieldConst(fp.name, fp, tuple(fp.p_limbs), fp.inv)
+
+
+FR_C = _mk_const(FR)
+FP_C = _mk_const(FP)
+
+
+def _p16(f: FieldConst, device) -> torch.Tensor:
+    return torch.tensor(f.p16, dtype=torch.int64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# words <-> 16-bit limbs
+# ---------------------------------------------------------------------------
+
+def to_limbs16(w: torch.Tensor) -> torch.Tensor:
+    """(..., 8) int32 words -> (..., 16) int64 limbs of 16 bits."""
+    x = w.to(torch.int64) & _MASK32
+    return torch.stack([x & _MASK16, (x >> 16) & _MASK16],
+                       dim=-1).reshape(*w.shape[:-1], 16)
+
+
+def from_limbs16(limbs: torch.Tensor) -> torch.Tensor:
+    """(..., 16) int64 canonical 16-bit limbs -> (..., 8) int32 words."""
+    pairs = limbs.reshape(*limbs.shape[:-1], 8, 2)
+    x = pairs[..., 0] | (pairs[..., 1] << 16)
+    x = x - (((x >> 31) & 1) << 32)            # two's-complement int32 value
+    return x.to(torch.int32)
+
+
+def _propagate(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Carry/borrow chain over the last axis of int64 columns (signed
+    carries, arithmetic shift): (16-bit limbs, final carry)."""
+    carry = torch.zeros(t.shape[:-1], dtype=torch.int64, device=t.device)
+    out = []
+    for j in range(t.shape[-1]):
+        v = t[..., j] + carry
+        out.append(v & _MASK16)
+        carry = v >> 16
+    return torch.stack(out, dim=-1), carry
+
+
+def _cond_sub_p(limbs, extra, f: FieldConst):
+    """limbs − p where (extra:limbs) >= p, else limbs."""
+    diff, borrow = _propagate(limbs - _p16(f, limbs.device))
+    take = (borrow == 0) | (extra != 0)
+    return torch.where(take.unsqueeze(-1), diff, limbs)
+
+
+# ---------------------------------------------------------------------------
+# Field operations on (..., 8) int32 words
+# ---------------------------------------------------------------------------
+
+def add(a: torch.Tensor, b: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    s, carry = _propagate(to_limbs16(a) + to_limbs16(b))
+    return from_limbs16(_cond_sub_p(s, carry, f))
+
+
+def sub(a: torch.Tensor, b: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    d, borrow = _propagate(to_limbs16(a) - to_limbs16(b))
+    fixed, _ = _propagate(d + _p16(f, d.device))
+    return from_limbs16(torch.where((borrow != 0).unsqueeze(-1), fixed, d))
+
+
+def neg(a: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    return sub(torch.zeros_like(a), a, f)
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor,
+             f: FieldConst = FR_C) -> torch.Tensor:
+    """a·b·R^{-1} mod p: 16x16 limb column sums, then 16 REDC steps.
+
+    Overflow audit (int64): a column holds at most 16 limb products
+    (< 2^32 each) plus 16 m·p_j terms (< 2^32 each) plus carries, < 2^38.
+    The result is < 2p before the final conditional subtract."""
+    la, lb = torch.broadcast_tensors(to_limbs16(a), to_limbs16(b))
+    shape = la.shape[:-1]
+    t = torch.zeros(*shape, 33, dtype=torch.int64, device=la.device)
+    for i in range(16):
+        t[..., i:i + 16] += la[..., i:i + 1] * lb
+    p16 = _p16(f, la.device)
+    for i in range(16):
+        m = ((t[..., i] & _MASK16) * f.inv) & _MASK16
+        t[..., i:i + 16] += m.unsqueeze(-1) * p16
+        t[..., i + 1] += t[..., i] >> 16       # low 16 bits are now zero
+    limbs, carry = _propagate(t[..., 16:32])
+    return from_limbs16(_cond_sub_p(limbs, carry + t[..., 32], f))
+
+
+def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cond ? a : b, with cond shaped like the batch (no word axis)."""
+    return torch.where(cond.unsqueeze(-1), a, b)
+
+
+# ---------------------------------------------------------------------------
+# Host boundary: Python ints, JAX limbs, FrVec bytes
+# ---------------------------------------------------------------------------
+
+def _words_of(values: list[int]) -> np.ndarray:
+    buf = b"".join(int(v).to_bytes(32, "little") for v in values)
+    return np.frombuffer(buf, dtype="<i4").reshape(len(values), 8)
+
+
+def ints_to_words(xs) -> torch.Tensor:
+    """Raw (not Montgomery) 256-bit ints -> (n, 8) int32 words (CPU)."""
+    return torch.from_numpy(_words_of(list(xs)).copy())
+
+
+def words_to_ints(a: torch.Tensor) -> list[int]:
+    """(..., 8) words -> raw ints, flattened over the batch."""
+    b = a.detach().to("cpu").contiguous().numpy().tobytes()
+    return [int.from_bytes(b[i:i + 32], "little") for i in range(0, len(b), 32)]
+
+
+def encode(xs, f: FieldConst = FR_C, device="cpu") -> torch.Tensor:
+    """Canonical int(s) -> Montgomery words: (8,) for a scalar, (n, 8) for
+    a sequence."""
+    p = f.params
+    if isinstance(xs, int):
+        return ints_to_words([p.mont(xs)])[0].to(device)
+    return ints_to_words([p.mont(int(x)) for x in xs]).to(device)
+
+
+def decode(a: torch.Tensor, f: FieldConst = FR_C):
+    """Montgomery words -> canonical int for an (8,) tensor, else the
+    flattened list of canonical ints."""
+    p = f.params.p
+    rinv = pow(R, -1, p)
+    vals = [v * rinv % p for v in words_to_ints(a)]
+    return vals[0] if a.dim() == 1 else vals
+
+
+def from_jax_limbs(arr) -> torch.Tensor:
+    """The JAX package's (..., 16) u16-in-u32 limb array -> (..., 8) int32
+    words of the same residue (CPU)."""
+    x = np.asarray(arr, dtype=np.uint32)
+    w = (x[..., 0::2] & np.uint32(_MASK16)) | (x[..., 1::2] << np.uint32(16))
+    return torch.from_numpy(np.ascontiguousarray(w).view(np.int32).copy())
+
+
+def to_jax_limbs(a: torch.Tensor) -> np.ndarray:
+    """(..., 8) int32 words -> the JAX package's (..., 16) uint32 limbs."""
+    w = a.detach().to("cpu").contiguous().numpy().view(np.uint32)
+    out = np.empty(w.shape[:-1] + (16,), dtype=np.uint32)
+    out[..., 0::2] = w & np.uint32(_MASK16)
+    out[..., 1::2] = w >> np.uint32(16)
+    return out
+
+
+def frvec_to_words(v) -> torch.Tensor:
+    """An FrVec's Montgomery bytes as a zero-copy (n, 8) int32 CPU view
+    (the FrVec keeps owning the buffer: copy before mutating either)."""
+    if v.n == 0:
+        return torch.zeros((0, 8), dtype=torch.int32)
+    if v._mont is None:
+        return encode(v._ints)
+    return torch.frombuffer(v._mont, dtype=torch.int32,
+                            count=8 * v.n).reshape(v.n, 8)
+
+
+def words_to_frvec(a: torch.Tensor):
+    """(n, 8) words (any device) -> FrVec owning a copy of the bytes."""
+    from ..native.frvec import FrVec
+
+    host = a.detach().to("cpu").contiguous()
+    return FrVec(host.shape[0], mont=bytearray(host.numpy().tobytes()))

@@ -1,0 +1,147 @@
+"""Single-device backend for the stage-1 streaming-outer remaining rounds
+(and stage 2's ProductVirtualRemainder, which has the same shape).
+
+The host prover (streaming_outer.StreamingOuterProver) drives the Gruen cubic
+rounds with two O(n) inner loops per round: the (t0, t∞) evaluation sums and
+the az/bz fold:
+
+  t0 = Σ_i e_i·az0_i·bz0_i      t∞ = Σ_i e_i·(az1_i−az0_i)(bz1_i−bz0_i)
+  e_i = E_out[i >> h_in] · E_in[i & (2^h_in − 1)]   (Gruen prefix tables)
+  fold: az'[i] = az[2i] + r·(az[2i+1] − az[2i])      (and likewise bz)
+
+matching the reference's hot-loop structure
+(src/zkvm/spartan/streaming_outer.zig:1577-1679, fold :1681-1722).
+
+The port of zolt_tpu/zkvm/device_outer.py DeviceOuterRounds. az/bz stay at
+their initial power-of-two size as one (2, n, 8) word stack, the live prefix
+halving per round behind a zero tail; the Gruen eq prefix-table stacks go to
+the device once per prover as flat buffers and each round passes only level
+offsets. The eval is kernel 4 (field/gruen.py), the fold kernel 1
+(field/fold.py). Eval and fold are separate launches: the challenge exists
+only after the evals are absorbed. Rounds whose live prefix is at most
+`tail_n()` finish on the host FrVec tier. The mesh backend
+(MeshOuterRounds) is not ported yet (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..field import limb
+from ..field.fold import fold
+from ..field.gruen import gruen_eval
+from ..field.params import FR
+from ..parallel.stage_engine import as_words, resolve_device, tail_n
+
+P = FR.p
+
+
+def _flat_stack(levels: list[list[int]], device) -> torch.Tensor:
+    """Flatten a doubling eq-table stack (level k has 2^k entries, offset
+    2^k − 1) into one (2^{K+1}−1, 8) Montgomery word buffer on the device,
+    so per-round traffic is a handful of scalars."""
+    flat: list[int] = []
+    for lvl in levels:
+        flat.extend(v % P for v in lvl)
+    return limb.encode(flat, device=device)
+
+
+def _gruen_level_args(se) -> tuple[int, int, int, int]:
+    """Per-round (off_out, off_in, h_in, head_out) level offsets into the
+    flat stacks, mirroring the host window selection
+    (getWindowEqTables(·, 1), reference src/poly/split_eq.zig:311-351)."""
+    head = se.current_index - 1
+    head_out = min(head, se.m)
+    head_in = head - head_out
+    lvl_out = min(head_out, len(se.E_out_vec) - 1)
+    lvl_in = min(head_in, len(se.E_in_vec) - 1)
+    return (1 << lvl_out) - 1, (1 << lvl_in) - 1, head_in, head_out
+
+
+def _gruen_tail_evals(se, az_fr, bz_fr, live: int) -> tuple[int, int]:
+    """Host-tier (t0, t∞) via the native FrVec kernel — the narrow-tail
+    rounds where a device launch would be pure latency."""
+    from ..native.frvec import FrVec
+
+    n2 = live // 2
+    if n2 == 0:
+        return 0, 0
+    head = se.current_index - 1
+    head_out = min(head, se.m)
+    h_in = head - head_out
+    e_out = se.E_out_vec[min(head_out, len(se.E_out_vec) - 1)]
+    e_in = se.E_in_vec[min(h_in, len(se.E_in_vec) - 1)]
+    n_out = max(1, n2 >> h_in)
+    n_in = min(1 << h_in, n2)
+    return FrVec.gruen_quad(FrVec.from_ints(e_out[:n_out]),
+                            FrVec.from_ints(e_in[:n_in]), h_in,
+                            az_fr, bz_fr, n2)
+
+
+class DeviceOuterRounds:
+    """Single-device backend. az/bz live on the device as Montgomery words;
+    the host keeps only the split-eq scalars (cubic-poly bookkeeping).
+    Attach the prover's GruenSplitEq once — its prefix-table stacks become
+    device-resident and every round passes only level offsets."""
+
+    def __init__(self, az, bz, se=None, device=None):
+        n = az.n if hasattr(az, "n") else len(az)
+        self.n = n                       # fixed device size
+        self.live = n                    # live prefix length (halves per round)
+        self.device = resolve_device(device)
+        self.tabs = torch.stack([as_words(az, self.device),
+                                 as_words(bz, self.device)])
+        self.se = None
+        self._fr = None                  # (az, bz) FrVecs once on the tail
+        if se is not None:
+            self.attach_eq(se)
+
+    def attach_eq(self, se) -> None:
+        self.se = se
+        self.eq_out = _flat_stack(se.E_out_vec, self.device)
+        self.eq_in = _flat_stack(se.E_in_vec, self.device)
+
+    def num_pairs(self) -> int:
+        return self.live // 2
+
+    def _maybe_tail(self) -> None:
+        if self._fr is not None or self.live > tail_n():
+            return
+        arr = self.tabs[:, : self.live].to("cpu")
+        self._fr = (limb.words_to_frvec(arr[0]), limb.words_to_frvec(arr[1]))
+        self.tabs = None
+
+    def round_evals_device(self):
+        """(2, 8) device tensor [t0, t∞] — no host sync — or None once on
+        the host tail; callers batch the download across instances (one
+        transfer per round per stage)."""
+        self._maybe_tail()
+        if self._fr is not None:
+            return None
+        off_out, off_in, h_in, _ = _gruen_level_args(self.se)
+        return gruen_eval(self.tabs[0], self.tabs[1], self.eq_out,
+                          self.eq_in, off_out, off_in, h_in, self.live // 2)
+
+    def round_evals(self) -> tuple[int, int]:
+        dev = self.round_evals_device()
+        if dev is None:
+            return _gruen_tail_evals(self.se, self._fr[0], self._fr[1],
+                                     self.live)
+        t0, tinf = limb.decode(dev)
+        return t0, tinf
+
+    def bind(self, r: int) -> None:
+        self._maybe_tail()
+        if self._fr is not None:
+            if self.live > 1:
+                self._fr = (self._fr[0].fold_adj(r), self._fr[1].fold_adj(r))
+                self.live //= 2
+            return
+        self.tabs = fold(self.tabs, r, self.live // 2)
+        self.live //= 2
+
+    def final_values(self) -> tuple[int, int]:
+        if self._fr is not None:
+            return self._fr[0].first(), self._fr[1].first()
+        a, b = limb.decode(self.tabs[:, 0])
+        return a, b

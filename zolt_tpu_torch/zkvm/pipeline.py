@@ -1,0 +1,137 @@
+"""End-to-end Jolt-format prove pipeline.
+
+Mirrors the reference's proveJoltFormat flow (src/zkvm/mod.zig:780-1010):
+run the ELF, Fiat-Shamir preamble, Dory-commit the witness polynomials,
+absorb the GT commitments, derive τ, then drive the 7 proof stages and
+assemble the serializable JoltProof.
+
+The reference run loads Jolt's URS from a file when present and otherwise
+falls back to the deterministic SHA3-seeded setup; we implement the
+deterministic setup (bit-identical to the reference's own `DoryScheme.setup`)
+and also accept pre-computed commitments (e.g. parsed from a golden proof)
+for differential testing.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..transcript import Blake2bTranscript
+from ..vm import pad_with_noop, run_elf
+from .commitments import CommitmentPhase, commit_and_absorb, derive_tau
+from .jolt_types import OneHotConfig, ReadWriteConfig
+from .preamble import fiat_shamir_preamble
+from .proof_converter import JoltConversion, convert_with_transcript
+
+LOG_RAM_K = 16
+BYTECODE_K = 1 << 16
+
+
+@dataclass
+class JoltPipelineResult:
+    conv: JoltConversion
+    commitments: CommitmentPhase | None
+    tau: list[int]
+    emulator: object
+    padded_steps: list
+
+
+def prove_jolt(elf_path: str, *, memory_size: int = 32768,
+               srs=None, golden_commitments: list[bytes] | None = None,
+               stages: int = 7, with_joint_proof: bool = False,
+               sound: bool = False, stage1_backend: str = "host",
+               mesh=None,
+               device=None, backend: str | None = None) -> JoltPipelineResult:
+    """Full Jolt-format proof for an ELF. `golden_commitments` replaces the
+    commitment phase with externally-provided GT bytes (for differential
+    testing against a proof produced with a different SRS).
+
+    backend="device" runs the wide sumcheck rounds of stages 1-4 as torch
+    tensors on `device` ("cuda" launches the hand-written kernels of
+    zolt_tpu_torch/csrc, "cpu" their plain torch versions); backend=None
+    keeps every round on the host C tier. Both give the same bytes."""
+    if backend == "mesh" or mesh is not None:
+        raise NotImplementedError(
+            "backend='mesh' is not ported yet (ROADMAP Queue 1 item 13)")
+    if sound:
+        raise NotImplementedError(
+            "sound=True is not ported yet (ROADMAP Queue 1 items 10-11)")
+    if backend == "device" and device is None:
+        raise ValueError("backend='device' needs an explicit device")
+    emu = run_elf(elf_path)
+    padded = pad_with_noop(list(emu.trace))
+    trace_length = len(padded)
+    n_cycle_vars = trace_length.bit_length() - 1
+
+    transcript = Blake2bTranscript(b"Jolt")
+    fiat_shamir_preamble(
+        transcript,
+        max_input_size=emu.device.layout.max_input_size,
+        max_output_size=emu.device.layout.max_output_size,
+        memory_size=memory_size,
+        inputs=bytes(emu.device.inputs),
+        outputs=bytes(emu.device.outputs),
+        panic=emu.device.panic,
+        ram_k=1 << LOG_RAM_K,
+        trace_length=trace_length,
+    )
+
+    from ..utils.log import metrics
+
+    bytecode_len = len(getattr(emu, "program_bytecode", b"")) or _bytecode_len(elf_path)
+    phase = None
+    if golden_commitments is not None:
+        for c in golden_commitments:
+            transcript.append_gt(c)
+        commitment_bytes = list(golden_commitments)
+    else:
+        with metrics.stage("commitments"):
+            phase = commit_and_absorb(transcript, padded, bytecode_len,
+                                      len(emu.ram.trace), srs=srs)
+        commitment_bytes = list(phase.commitments)
+
+    tau = derive_tau(transcript, n_cycle_vars)
+    conv = convert_with_transcript(padded, tau, transcript, emulator=emu,
+                                   log_ram_k=LOG_RAM_K, stages=stages,
+                                   stage1_backend=stage1_backend,
+                                   device=device, backend=backend)
+
+    proof = conv.proof
+    proof.commitments = commitment_bytes
+    proof.trace_length = trace_length
+    proof.ram_k = 1 << LOG_RAM_K
+    proof.bytecode_k = BYTECODE_K
+    proof.rw_config = ReadWriteConfig.default(n_cycle_vars, LOG_RAM_K)
+    proof.one_hot_config = OneHotConfig()
+    proof.dory_layout = 0
+    if with_joint_proof:
+        proof.joint_opening_proof = build_joint_opening_proof(
+            elf_path, len(emu.ram.trace), trace_length)
+    return JoltPipelineResult(conv=conv, commitments=phase, tau=tau,
+                              emulator=emu, padded_steps=padded)
+
+
+def build_joint_opening_proof(elf_path: str, memory_trace_len: int,
+                              trace_length: int) -> bytes:
+    """The proof-file's joint Dory opening (src/zkvm/mod.zig:1428-1450):
+    bytecode evals opened at the fixed point (i+1)·12345 with the
+    deterministic SRS sized to the largest committed polynomial."""
+    from ..pcs import dory
+    from ..vm import elf as elf_mod
+
+    _, image = elf_mod.load_file(elf_path).flat_image()
+    bytecode_size = max(2, 1 << (len(image) - 1).bit_length()) if image else 2
+    memory_size_p = max(2, 1 << (max(memory_trace_len, 1) - 1).bit_length())
+    max_size = max(bytecode_size, memory_size_p, trace_length)
+    log_size = max(1, max_size.bit_length())
+    evals = list(image) + [0] * (bytecode_size - len(image))
+    point = [(i + 1) * 12345 for i in range(log_size)]
+    srs = dory.setup(log_size)
+    return dory.serialize_dory_proof(dory.open_fixed(srs, evals, point))
+
+
+def _bytecode_len(elf_path: str) -> int:
+    from ..vm import elf as elf_mod
+
+    _, image = elf_mod.load_file(elf_path).flat_image()
+    return len(image)
