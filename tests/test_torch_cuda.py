@@ -10,13 +10,18 @@ imports JAX):
 chip_smoke.py holds each kernel to its plain version at the main path's
 shapes; these add the shapes the path does not produce: live prefixes that
 are not powers of two, a single pair, degrees 0-3, and tables large enough
-that every thread walks several grid strides. Tolerance: exact (equal
-words), since every value is a canonical field element.
+that every thread walks several grid strides; for the grouped product
+evals, both schedules (a thread a pair, four threads a pair) at every
+live count, mixed groups in one launch (chip_smoke.MIXED_GROUPS), launches
+back to back (the kernel's scratch must return to zero) and more than 16
+groups. Tolerance: exact (equal words), since every value is a canonical
+field element.
 """
 
 import pytest
 import torch
 
+from chip_smoke import MIXED_GROUPS
 from zolt_tpu_torch.field import evals, fold, gruen
 
 pytestmark = pytest.mark.cuda
@@ -54,19 +59,62 @@ def test_fold_kernel_matches_plain(gen, k, n, live_pairs):
     assert not got[:, live_pairs:].any()
 
 
+@pytest.mark.parametrize("split_max", [0, 1 << 62],
+                         ids=["thread_a_pair", "four_threads_a_pair"])
 @pytest.mark.parametrize("k", [2, 3])
-@pytest.mark.parametrize("live_pairs", [0, 1, 37, 1000, 1 << 18])
-def test_product_evals_kernels_match_plain(gen, k, live_pairs):
+@pytest.mark.parametrize("live_pairs", [0, 1, 37, 1000, 8193, 1 << 18])
+def test_product_evals_kernels_match_plain(gen, monkeypatch, split_max, k,
+                                           live_pairs):
+    """One group per launch, degrees 0-3, each schedule at every count."""
+    monkeypatch.setattr(evals, "SPLIT_MAX_PAIRS", split_max)
     n = max(2048, 2 * live_pairs)
     tabs = _tables(gen, k, n, 2 * live_pairs)
     for degree in range(evals.MAX_DEGREE + 1):
-        before = dict(evals.product_evals.launches)
-        got = evals.product_evals(tabs, live_pairs, degree)
+        before = dict(evals.product_evals.counts)
+        got, = evals.product_evals([(tabs, live_pairs, degree)])
         torch.cuda.synchronize()
-        before[k] += 1
-        assert evals.product_evals.launches == before
+        c = evals.product_evals.counts
+        assert c["launches"] == before["launches"] + 1
+        assert c[f"groups_k{k}"] == before[f"groups_k{k}"] + 1
         assert torch.equal(got,
                            evals.product_evals_plain(tabs, live_pairs, degree))
+
+
+def test_grouped_launch_matches_plain_and_resets_its_tickets(gen):
+    """One launch over mixed groups, three times back to back on the same
+    inputs: the same words every time (each launch's last blocks found
+    their tickets at zero), and equal to the plain version per group."""
+    groups = [(_tables(gen, k, n, 2 * live), live, deg)
+              for k, n, live, deg in MIXED_GROUPS]
+    want = [evals.product_evals_plain(*g) for g in groups]
+    before = evals.product_evals.counts["launches"]
+    for _ in range(3):
+        got = evals.product_evals(groups)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert evals.product_evals.counts["launches"] == before + 3
+    assert not evals._scratch(groups[0][0].device).any()
+
+
+def test_grouped_launch_of_more_than_sixteen_groups(gen):
+    groups = [(_tables(gen, 2 + i % 2, 512, 2 * (i + 1)), i + 1, i % 4)
+              for i in range(20)]
+    before = evals.product_evals.counts["launches"]
+    got = evals.product_evals(groups)
+    torch.cuda.synchronize()
+    assert evals.product_evals.counts["launches"] == before + 2
+    for g, out in zip(groups, got):
+        assert torch.equal(out, evals.product_evals_plain(*g))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_grouped_launch_at_2_21_entries(gen, k):
+    """Every thread walks several grid strides (1024 blocks a group)."""
+    n = 1 << 21
+    tabs = _tables(gen, k, n, n)
+    got, = evals.product_evals([(tabs, n // 2, 3)])
+    assert torch.equal(got, evals.product_evals_plain(tabs, n // 2, 3))
 
 
 @pytest.mark.parametrize("live_pairs,h_in,off_out,off_in", [
@@ -92,4 +140,4 @@ def test_wrappers_refuse_misaligned_tables(gen):
     with pytest.raises(ValueError, match="aligned"):
         fold.fold(tabs, 3, 8)
     with pytest.raises(ValueError, match="aligned"):
-        evals.product_evals(tabs, 8, 2)
+        evals.product_evals([(tabs, 8, 2)])

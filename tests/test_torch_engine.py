@@ -44,6 +44,10 @@ from zolt_tpu_torch.vm.guest import Asm
 from zolt_tpu_torch.vm.layout import MemoryConfig, MemoryLayout
 from zolt_tpu_torch.zkvm import device_outer as do
 
+# The tensors here are tiny: torch's worker threads would only spin, and
+# they doubled the CPU seconds of the port's tests.
+torch.set_num_threads(1)
+
 P = FR.p
 CPU = torch.device("cpu")
 
@@ -103,10 +107,41 @@ def test_evals_match_xla_evals_fixed(k, degree):
         tabs = torch.stack([limb.encode(_ints(41 + 10 * live + j, live)
                                         + [0] * (n - live))
                             for j in range(k)])
-        got = evals.product_evals(tabs, live // 2, degree)
+        got, = evals.product_evals([(tabs, live // 2, degree)])
         ref = jse._evals_fixed(jnp.asarray(limb.to_jax_limbs(tabs)), degree)
         assert torch.equal(got, _words(ref))
         live //= 2
+
+
+def test_round_evals_many_matches_jax_engines(monkeypatch):
+    """Stage 3's instance set, three k = 2 degree-2 and four k = 3 degree-3
+    engines, evaluated per round by one round_evals_many call (one grouped
+    launch on a GPU), against zolt_tpu's engines round by round. The host
+    tail at 4 moves every engine to the host for the last two rounds, where
+    round_evals_many hands back None. The k = 2 engines carry a passenger,
+    so all folds share the k3d3 case's XLA program."""
+    monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "4")
+    n = 16
+    specs = [(2, 2, 1)] * 3 + [(3, 3, 0)] * 4
+    port, ref = [], []
+    for i, (k, degree, passengers) in enumerate(specs):
+        vals = [_ints(200 + 10 * i + j, n) for j in range(k + passengers)]
+        port.append(se.DeviceProductTables(
+            [FrVec.from_ints(v) for v in vals[:k]],
+            [FrVec.from_ints(v) for v in vals[k:]], degree=degree,
+            device="cpu"))
+        ref.append(jse.DeviceProductTables(
+            [JFrVec.from_ints(v) for v in vals[:k]],
+            [JFrVec.from_ints(v) for v in vals[k:]], degree=degree))
+    for rnd, r in enumerate(_ints(17, n.bit_length() - 1)):
+        futs = se.round_evals_many(port)
+        assert [f is None for f in futs] == [rnd >= 2] * len(port)
+        got = [e.round_evals() if v is None else v
+               for e, v in zip(port, se.drain_futures(futs))]
+        assert got == [e.round_evals() for e in ref]
+        for e in port + ref:
+            e.bind(r)
+    assert [e.finals() for e in port] == [e.finals() for e in ref]
 
 
 def test_drain_futures_batches_engines_in_one_download(monkeypatch):
@@ -116,11 +151,14 @@ def test_drain_futures_batches_engines_in_one_download(monkeypatch):
     b = se.DeviceProductTables([FrVec.from_ints(_ints(s, 8))
                                 for s in (3, 4, 5)], degree=3, device="cpu")
     outer = torch.stack([limb.encode(_ints(6, 2)), limb.encode(_ints(7, 2))])
-    got = se.drain_futures([a.round_evals_device(), outer,
+    got = se.drain_futures([a.round_evals_device(), outer, None,
                             b.round_evals_device()])
-    assert got == [a.round_evals(), limb.decode(outer.reshape(-1, 8)),
+    assert got == [a.round_evals(), limb.decode(outer.reshape(-1, 8)), None,
                    b.round_evals()]
+    absent, fut = se.round_evals_many([None, a])
+    assert absent is None and se.drain_futures([fut]) == [a.round_evals()]
     assert se.drain_futures([]) == []
+    assert se.drain_futures([None]) == [None]
 
 
 def test_engine_device_is_explicit():

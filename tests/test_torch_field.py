@@ -19,6 +19,10 @@ from zolt_tpu_torch.field.params import FR
 from zolt_tpu_torch.native.frvec import FrVec
 from zolt_tpu_torch.poly.dense import sum_mod
 
+# The tensors here are tiny: torch's worker threads would only spin, and
+# they doubled the CPU seconds of the port's tests.
+torch.set_num_threads(1)
+
 P = FR.p
 R = 1 << 256
 

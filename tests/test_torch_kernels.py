@@ -27,6 +27,10 @@ from zolt_tpu_torch.field import evals, fold, gruen, limb
 from zolt_tpu_torch.field.params import FR
 from zolt_tpu_torch.native.frvec import FrVec
 
+# The tensors here are tiny: torch's worker threads would only spin, and
+# they doubled the CPU seconds of the port's tests.
+torch.set_num_threads(1)
+
 P = FR.p
 
 
@@ -150,7 +154,7 @@ def test_fold_checks_its_inputs():
 def test_evals_k2_matches_pallas_eval_rows_k2(interpret, degree):
     n, live = 2048, 1200                             # smallest legal rows: 256
     tabs = _tables(21, 2, n, live)
-    got = evals.product_evals(tabs, n // 2, degree)
+    got, = evals.product_evals([(tabs, n // 2, degree)])
     rows = [_jax(tabs[j]).reshape(n // 8, 128) for j in range(2)]
     flat = np.asarray(pr.eval_rows_k2(*rows)).reshape(-1)
     ref = pr.decode_eval_rows_k2(flat, degree, P, jse._R_INV2)
@@ -163,7 +167,7 @@ def test_evals_k2_matches_pallas_eval_rows_k2(interpret, degree):
 def test_evals_k3_matches_pallas_eval_rows_k3(interpret, degree):
     n, live = 64, 40                                 # smallest legal rows: 8
     tabs = _tables(31, 3, n, live)
-    got = evals.product_evals(tabs, n // 2, degree)
+    got, = evals.product_evals([(tabs, n // 2, degree)])
     rows = [_jax(tabs[j]).reshape(n // 8, 128) for j in range(3)]
     flat = np.asarray(pr.eval_rows_k3(*rows)).reshape(-1)
     ref = pr.decode_eval_rows_k3(flat, degree, P, jse._R_INV3)
@@ -176,21 +180,128 @@ def test_evals_match_frvec_down_to_one_pair(k, degree):
     live = n
     while live >= 2:
         tabs = _tables(41 + live, k, n, live)
-        got = evals.product_evals(tabs, live // 2, degree)
+        got, = evals.product_evals([(tabs, live // 2, degree)])
         host = [limb.words_to_frvec(tabs[j, :live]) for j in range(k)]
         assert limb.decode(got) == FrVec.prod_evals_adj(host, degree)
         live //= 2
 
 
+MIXED_GROUPS = [        # (k, n, live_pairs, degree): one grouped call
+    (2, 64, 32, 2), (3, 64, 32, 3), (2, 32, 5, 3), (3, 16, 1, 0),
+    (2, 8, 0, 1), (3, 128, 37, 2), (2, 16, 1, 0), (3, 32, 7, 1)]
+
+
+def test_grouped_evals_match_plain_and_frvec_per_group():
+    groups = [(_tables(60 + i, k, n, 2 * live), live, deg)
+              for i, (k, n, live, deg) in enumerate(MIXED_GROUPS)]
+    got = evals.product_evals(groups)
+    assert len(got) == len(groups)
+    for out, (tabs, live, deg) in zip(got, groups):
+        assert out.shape == (deg + 1, 8)
+        assert torch.equal(out, evals.product_evals_plain(tabs, live, deg))
+        host = [limb.words_to_frvec(tabs[j, : 2 * live])
+                for j in range(tabs.shape[0])]
+        want = (FrVec.prod_evals_adj(host, deg) if live
+                else [0] * (deg + 1))
+        assert limb.decode(out) == want
+
+
+# -- the kernel's point schedule, modelled in Python integers ---------------
+
+R = 1 << 256
+P_INV_R = (-pow(P, -1, R)) % R
+
+
+def _wide_to_fr(acc: int) -> int:
+    """csrc/field_ptx.cuh wide_term, summed: a 17-word sum lo + mid·2^256 +
+    hi·2^512 as three Montgomery products, lo·1, mid·(R mod p) and
+    hi·(R^2 mod p), each exact for a first operand below 2^256."""
+    assert 0 <= acc < 1 << (17 * 32)
+    lo, mid, hi = acc % R, (acc >> 256) % R, acc >> 512
+
+    def mont(a: int, b: int) -> int:           # CIOS: (a·b + M·p) / R < 2p
+        t = a * b
+        t = (t + (t * P_INV_R % R) * P) // R
+        assert t < 2 * P
+        return t - P if t >= P else t
+
+    return (mont(lo, 1) + mont(mid, R % P) + mont(hi, R * R % P)) % P
+
+
+def _schedule_model(tabs: torch.Tensor, live: int, degree: int) -> list[int]:
+    """What each thread of csrc/product_evals.cu computes, on Montgomery
+    residues: K = 2 sums points 0..min(degree, 2) and extrapolates p(3);
+    K = 3 forms u_0..u_2 by reduced products and u_3 = u_0 + 3(u_2 − u_1),
+    then sums u_t·z_t. The last product of each point is not reduced: the
+    raw sum is reduced once (_wide_to_fr)."""
+    k = tabs.shape[0]
+    cols = [limb.words_to_ints(tabs[j, : 2 * live]) for j in range(k)]
+    k2 = k == 2
+    npts = min(degree, 2) + 1 if k2 else degree + 1
+    acc = [0] * npts
+    rinv = pow(R, -1, P)
+    for i in range(live):
+        pts = []
+        for c in cols:
+            a, b = c[2 * i], c[2 * i + 1]
+            pts.append([(a + t * (b - a)) % P for t in range(4)])
+        if k2:
+            lazy, last = pts[0], pts[1]
+        else:
+            u = [pts[0][t] * pts[1][t] * rinv % P for t in range(3)]
+            u.append((u[0] + 3 * (u[2] - u[1])) % P)
+            lazy, last = u, pts[2]
+        for t in range(npts):
+            acc[t] += lazy[t] * last[t]               # raw, < p^2
+    out = [_wide_to_fr(a) for a in acc]
+    if k2 and degree == 3:
+        out.append((out[0] + 3 * (out[2] - out[1])) % P)
+    return out
+
+
+@pytest.mark.parametrize("k,n,live,degree", MIXED_GROUPS[:4])
+def test_kernel_point_schedule_matches_plain(k, n, live, degree):
+    tabs = _tables(70 + k + degree, k, n, 2 * live)
+    plain = evals.product_evals_plain(tabs, live, degree)
+    assert _schedule_model(tabs, live, degree) == limb.words_to_ints(plain)
+
+
+def test_wide_reduction_holds_at_its_word_bound():
+    """The largest 17-word sum, and 2^36 − 1 products of p − 1 by p − 1."""
+    for acc in ((1 << (17 * 32)) - 1, ((1 << 36) - 1) * (P - 1) ** 2):
+        assert _wide_to_fr(acc) == acc * pow(R, -1, P) % P
+
+
+@pytest.mark.parametrize("name,value", [("r_mod_p", R % P),
+                                        ("r2_mod_p", R * R % P)])
+def test_field_ptx_constants(name, value):
+    """field_ptx.cuh's R mod p and R^2 mod p words, read from the source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(evals.__file__).parents[1] / "csrc" /
+           "field_ptx.cuh").read_text()
+    body = src[src.index(f"Fr {name}()"):]
+    body = body[: body.index("return r;")]
+    words = [int(w, 16) for w in re.findall(r"= (0x[0-9a-f]+)u;", body)]
+    assert len(words) == 8
+    assert sum(w << (32 * i) for i, w in enumerate(words)) == value
+
+
 def test_evals_wrapper_checks_k_and_degree():
     tabs = _tables(51, 3, 8, 8)
     with pytest.raises(ValueError):
-        evals.product_evals(tabs, 4, 4)
+        evals.product_evals([(tabs, 4, 4)])
     with pytest.raises(ValueError, match="k = 2, 3"):
-        evals.product_evals(_tables(52, 4, 8, 8), 4, 2)
+        evals.product_evals([(tabs, 4, 2), (_tables(52, 4, 8, 8), 4, 2)])
     with pytest.raises(ValueError, match="k = 2, 3"):
-        evals.product_evals(tabs[:1], 4, 2)
-    assert limb.decode(evals.product_evals(tabs, 0, 3)) == [0, 0, 0, 0]
+        evals.product_evals([(tabs[:1], 4, 2)])
+    with pytest.raises(ValueError, match="out of range"):
+        evals.product_evals([(tabs, 5, 2)])
+    with pytest.raises(ValueError, match="no kernel"):
+        evals.product_evals([(tabs.to("meta"), 4, 2)])   # no CPU fallback
+    assert limb.decode(evals.product_evals([(tabs, 0, 3)])[0]) == [0] * 4
+    assert evals.product_evals([]) == []
 
 
 # -- kernel 4: Gruen eq-weighted round ----------------------------------------
@@ -245,13 +356,12 @@ def test_gruen_checks_its_inputs():
 
 
 def test_cpu_calls_launch_no_kernel():
-    counts = (fold.fold.launches, dict(evals.product_evals.launches),
+    counts = (fold.fold.launches, dict(evals.product_evals.counts),
               gruen.gruen_eval.launches)
     tabs = _tables(91, 3, 8, 8)
     fold.fold(tabs, 3, 4)
-    evals.product_evals(tabs[:2].contiguous(), 4, 2)
-    evals.product_evals(tabs, 4, 3)
+    evals.product_evals([(tabs[:2].contiguous(), 4, 2), (tabs, 4, 3)])
     ab, e_out, e_in, off_out, off_in, h_in, _ = _gruen_case(92, 16, 8)
     gruen.gruen_eval(ab[0], ab[1], e_out, e_in, off_out, off_in, h_in, 8)
-    assert counts == (fold.fold.launches, evals.product_evals.launches,
+    assert counts == (fold.fold.launches, evals.product_evals.counts,
                       gruen.gruen_eval.launches)

@@ -4,9 +4,10 @@ the JAX package's proof bytes.
 `zolt_tpu_torch.zkvm.pipeline.prove_jolt(elf, backend="device",
 device="cpu")` runs every sumcheck round of stages 1-4 through the port's
 engines (the tail handoff pinned to 0), here on the kernels' plain torch
-versions. The reference is `zolt_tpu`'s host-tier prove, which compiles no
-XLA and is what the JAX package holds its own device path to. Tolerance:
-the serialized proofs are byte-equal.
+versions; `backend="host"` runs the host C tier. (By default prove_jolt
+runs on "cuda".) The reference is `zolt_tpu`'s host-tier prove, which
+compiles no XLA and is what the JAX package holds its own device path to.
+Tolerance: the serialized proofs are byte-equal.
 """
 
 import hashlib
@@ -14,6 +15,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import chip_smoke
 from golden_programs import _golden_array
@@ -21,6 +23,10 @@ from golden_programs import _golden_array
 from zolt_tpu.vm.layout import MemoryConfig, MemoryLayout
 from zolt_tpu.zkvm.pipeline import prove_jolt as jax_prove_jolt
 from zolt_tpu_torch.zkvm.pipeline import prove_jolt
+
+# The tensors here are tiny: torch's worker threads would only spin, and
+# they doubled the CPU seconds of the port's tests.
+torch.set_num_threads(1)
 
 LAY = MemoryLayout.create(MemoryConfig(program_size=1024))
 
@@ -48,11 +54,11 @@ def test_device_prove_matches_jax_bytes(tmp_path, monkeypatch, guest):
     ref = jax_prove_jolt(path).conv.proof.serialize_with_dory()
     dev = prove_jolt(path, backend="device", device="cpu")
     assert dev.conv.proof.serialize_with_dory() == ref
-    host = prove_jolt(path).conv.proof.serialize_with_dory()
+    host = prove_jolt(path, backend="host").conv.proof.serialize_with_dory()
     assert host == ref
 
 
-def test_prove_jolt_refuses_what_is_not_ported(tmp_path):
+def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
     path = str(tmp_path / "g.elf")
     with open(path, "wb") as f:
         f.write(_golden_array_elf())
@@ -61,12 +67,19 @@ def test_prove_jolt_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="sound"):
         prove_jolt(path, sound=True)
     with pytest.raises(ValueError, match="explicit device"):
-        prove_jolt(path, backend="device")
+        prove_jolt(path, backend="device", device=None)
+    for backend in ("gpu", None):
+        with pytest.raises(ValueError, match="'device' or 'host'"):
+            prove_jolt(path, backend=backend)
+    # the default is the GPU, and without one it raises: no fallback
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove_jolt(path)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, imported in a fresh interpreter (this
-    process has both loaded through tests/conftest.py)."""
+    """Every module of the port and chip_smoke.py, imported in a fresh
+    interpreter (this process has both loaded through tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import zolt_tpu_torch\n"
@@ -74,6 +87,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                               'zolt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import zolt_tpu_torch.zkvm.pipeline\n"
+        "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'zolt_tpu'))\n"
         "print(len(sys.modules), bad)\n"

@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_eval.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def build_dir() -> str:
@@ -77,16 +77,28 @@ def kernels() -> KernelLib:
     build_s = 0.0
     if not os.path.exists(so):
         tmp = f"{so}.{os.getpid()}.tmp"       # concurrent builders never share it
-        cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-               + [os.path.join(CSRC, s) for s in KERNEL_SOURCES])
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all at once, then one link
+        objs = [f"{tmp}.{s}.o" for s in KERNEL_SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(KERNEL_SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log[-4000:]}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp] + objs,
+                              capture_output=True, text=True)
         build_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        for o in objs:
+            os.remove(o)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-4000:]}")
         with open(log_path, "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(log + link.stdout + link.stderr)
         os.replace(tmp, so)
     ptxas_log = ""
     if os.path.exists(log_path):
@@ -96,7 +108,7 @@ def kernels() -> KernelLib:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.zfr_fold.argtypes = [P, P, P, I, L, L, P]
     lib.zfr_fold.restype = I
-    lib.zfr_product_evals.argtypes = [P, I, L, L, I, P, I, P, P]
+    lib.zfr_product_evals.argtypes = [P, I, P, P]
     lib.zfr_product_evals.restype = I
     lib.zfr_gruen_eval.argtypes = [P, P, P, P, L, L, I, L, P, I, P, P]
     lib.zfr_gruen_eval.restype = I

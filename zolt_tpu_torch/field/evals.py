@@ -1,17 +1,21 @@
-"""Kernels 2 and 3: round evaluations of a k-factor product sumcheck.
+"""Kernels 2 and 3: round evaluations of k-factor product sumchecks.
 
     evals[t] = Σ_{i < live_pairs} Π_j (lo_j[i] + t·(hi_j[i] − lo_j[i]))
     t = 0..degree,  lo_j[i] = tabs[j][2i],  hi_j[i] = tabs[j][2i+1]
 
 returned as (degree+1, 8) Montgomery words. `product_evals` is the wrapper
-of the k = 2 and k = 3 instantiations of csrc/product_evals.cu (which
-replace zolt_tpu/field/pallas_redc.py eval_rows_k2 and eval_rows_k3 with
-their host decodes): on a CUDA tensor it launches the kernel or raises, on
-a CPU tensor it runs `product_evals_plain`. `product_evals.launches[k]`
-counts the launches of each instantiation.
+of csrc/product_evals.cu (which replaces zolt_tpu/field/pallas_redc.py
+eval_rows_k2 and eval_rows_k3 with their host decodes). It takes a list of
+groups (tabs, live_pairs, degree), k = 2 or 3 each, and evaluates them all
+in one launch: on CUDA tensors it launches the kernel or raises, on CPU
+tensors it runs `product_evals_plain` group by group. Its counters, plain
+integers in `product_evals.counts`: "launches", "launches_k2"/"launches_k3"
+(launches that carried a group of that k) and "groups_k2"/"groups_k3".
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -20,14 +24,32 @@ from ..poly.dense import sum_mod
 from . import limb
 
 MAX_DEGREE = 3
-_THREADS = 128
-_MAX_BLOCKS = 1024
+MAX_GROUPS = 16                 # csrc/product_evals.cu MAX_GROUPS
+_THREADS = 128                  # csrc/product_evals.cu THREADS
+_LANES = 4                      # csrc/product_evals.cu LANES
+# Groups of at most this many live pairs take four threads a pair (one a
+# point), larger ones a thread a pair: the crossover on an H100
+# (chip_smoke.py times both schedules at each live count; PERF.md).
+SPLIT_MAX_PAIRS = 1 << 13
+_MAX_BLOCKS = 1024              # per group; threads walk further pairs
+_SLOT_WORDS = (MAX_DEGREE + 1) * 17 + 1  # a group's column sums, a ticket
+
+
+class _Group(ctypes.Structure):
+    """csrc/product_evals.cu ZfrEvalGroup."""
+    _fields_ = [("tabs", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("live_pairs", ctypes.c_longlong),
+                ("k", ctypes.c_int), ("degree", ctypes.c_int),
+                ("lanes", ctypes.c_int), ("nblocks", ctypes.c_int)]
 
 
 def _check(tabs: torch.Tensor, live_pairs: int, degree: int) -> None:
     if tabs.dtype != torch.int32 or tabs.dim() != 3 or tabs.shape[2] != 8:
         raise ValueError(f"product evals take (k, n, 8) int32 tables, got "
                          f"{tuple(tabs.shape)} {tabs.dtype}")
+    if tabs.shape[0] not in (2, 3):
+        raise ValueError(f"product evals have kernels for k = 2, 3, not "
+                         f"{tabs.shape[0]}")
     if not tabs.is_contiguous():
         raise ValueError("product evals take contiguous tables")
     n = tabs.shape[1]
@@ -57,36 +79,72 @@ def product_evals_plain(tabs: torch.Tensor, live_pairs: int,
     return torch.stack(outs)
 
 
-def _launch(tabs: torch.Tensor, live_pairs: int, degree: int) -> torch.Tensor:
-    if tabs.device.type != "cuda":
-        raise ValueError(f"product evals have no kernel for {tabs.device}")
-    if tabs.data_ptr() % 16:
-        raise ValueError("product evals need 16-byte aligned tables")
-    k, n = tabs.shape[0], tabs.shape[1]
-    nblocks = max(1, min(_MAX_BLOCKS, -(-live_pairs // _THREADS)))
-    partials = torch.empty((nblocks * (MAX_DEGREE + 1), 8),
-                           dtype=torch.int32, device=tabs.device)
-    out = torch.empty((degree + 1, 8), dtype=torch.int32, device=tabs.device)
-    with torch.cuda.device(tabs.device):
+_SCRATCH: dict[torch.device, torch.Tensor] = {}
+
+
+def _scratch(device: torch.device) -> torch.Tensor:
+    """The kernel's per-group column sums and ticket counters on `device`
+    (csrc/product_evals.cu SLOT words a group): zeroed once, and left at
+    zero by every launch. Launches on one device take them in stream order,
+    so the port launches on the current stream only."""
+    if device not in _SCRATCH:
+        _SCRATCH[device] = torch.zeros((MAX_GROUPS, _SLOT_WORDS),
+                                       dtype=torch.int64, device=device)
+    return _SCRATCH[device]
+
+
+def _launch(groups) -> list[torch.Tensor]:
+    dev = groups[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"product evals have no kernel for {dev}")
+    outs = torch.empty((sum(d + 1 for _, _, d in groups), 8),
+                       dtype=torch.int32, device=dev)
+    descs = (_Group * len(groups))()
+    views, row = [], 0
+    for desc, (tabs, live, degree) in zip(descs, groups):
+        if tabs.device != dev:
+            raise ValueError(f"product evals groups on {tabs.device} and {dev}")
+        if tabs.data_ptr() % 16:
+            raise ValueError("product evals need 16-byte aligned tables")
+        out = outs[row: row + degree + 1]
+        lanes = _LANES if live <= SPLIT_MAX_PAIRS else 1
+        nblocks = max(1, min(_MAX_BLOCKS, -(-live * lanes // _THREADS)))
+        desc.tabs, desc.out = tabs.data_ptr(), out.data_ptr()
+        desc.n, desc.live_pairs = tabs.shape[1], live
+        desc.k, desc.degree = tabs.shape[0], degree
+        desc.lanes, desc.nblocks = lanes, nblocks
+        views.append(out)
+        row += degree + 1
+    with torch.cuda.device(dev):
         rc = _build.kernels().lib.zfr_product_evals(
-            tabs.data_ptr(), k, n, live_pairs, degree, partials.data_ptr(),
-            nblocks, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"product_evals k={k}")
-    return out
+            ctypes.addressof(descs), len(groups), _scratch(dev).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"product_evals ({len(groups)} groups)")
+    return views
 
 
-def product_evals(tabs: torch.Tensor, live_pairs: int,
-                  degree: int) -> torch.Tensor:
-    """(degree+1, 8) round evals of the k tables in `tabs` (k, n, 8)."""
-    _check(tabs, live_pairs, degree)
-    k = tabs.shape[0]
-    if k not in product_evals.launches:
-        raise ValueError(f"product evals have kernels for k = 2, 3, not {k}")
-    if tabs.device.type == "cpu":
-        return product_evals_plain(tabs, live_pairs, degree)
-    out = _launch(tabs, live_pairs, degree)
-    product_evals.launches[k] += 1
-    return out
+def product_evals(groups) -> list[torch.Tensor]:
+    """The (degree+1, 8) round evals of each group (tabs (k, n, 8),
+    live_pairs, degree), k = 2 or 3; up to MAX_GROUPS groups a launch."""
+    groups = [(tabs, int(live), int(degree)) for tabs, live, degree in groups]
+    for g in groups:
+        _check(*g)
+    if not groups:
+        return []
+    if all(tabs.device.type == "cpu" for tabs, _, _ in groups):
+        return [product_evals_plain(*g) for g in groups]
+    outs = []
+    for i in range(0, len(groups), MAX_GROUPS):
+        chunk = groups[i: i + MAX_GROUPS]
+        outs += _launch(chunk)
+        c = product_evals.counts
+        c["launches"] += 1
+        ks = [tabs.shape[0] for tabs, _, _ in chunk]
+        for k in (2, 3):
+            c[f"groups_k{k}"] += ks.count(k)
+            c[f"launches_k{k}"] += k in ks
+    return outs
 
 
-product_evals.launches = {2: 0, 3: 0}
+product_evals.counts = dict.fromkeys(
+    ("launches", "launches_k2", "launches_k3", "groups_k2", "groups_k3"), 0)

@@ -69,14 +69,28 @@ def from_limbs16(limbs: torch.Tensor) -> torch.Tensor:
 
 def _propagate(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Carry/borrow chain over the last axis of int64 columns (signed
-    carries, arithmetic shift): (16-bit limbs, final carry)."""
+    carries, arithmetic shift): (16-bit limbs, final carry).
+
+    On a GPU the chain runs limb by limb: one step per limb, and no step
+    waits for the host. On the CPU every limb passes its carry up at once,
+    until no limb has one: a few passes for most inputs, each ending in a
+    test of the data, which on a GPU would be a host sync."""
     carry = torch.zeros(t.shape[:-1], dtype=torch.int64, device=t.device)
-    out = []
-    for j in range(t.shape[-1]):
-        v = t[..., j] + carry
-        out.append(v & _MASK16)
-        carry = v >> 16
-    return torch.stack(out, dim=-1), carry
+    if t.device.type != "cpu":
+        out = []
+        for j in range(t.shape[-1]):
+            v = t[..., j] + carry
+            out.append(v & _MASK16)
+            carry = v >> 16
+        return torch.stack(out, dim=-1), carry
+    v = t.clone()
+    while True:
+        c = v >> 16
+        if not c.any():
+            return v, carry
+        v &= _MASK16
+        v[..., 1:] += c[..., :-1]
+        carry += c[..., -1]
 
 
 def _cond_sub_p(limbs, extra, f: FieldConst):

@@ -12,7 +12,8 @@ The port of zolt_tpu/parallel/stage_engine.py for one device. Tables keep
 their initial power-of-two size as one (k, n, 8) int32 stack of Montgomery
 words; the live prefix halves per round behind a zero tail (zero factors
 kill tail products, so sums are exact). Evals go through kernels 2-3
-(field/evals.py), folds through kernel 1 (field/fold.py). Once the live
+(field/evals.py), all of a round's instances in one launch
+(round_evals_many), folds through kernel 1 (field/fold.py). Once the live
 prefix is at most `tail_n()` entries the remaining rounds move to the host
 FrVec tier.
 
@@ -46,21 +47,45 @@ def tail_n() -> int:
     return int(os.environ.get("ZOLT_TPU_DEVICE_TAIL", "8192"))
 
 
-def drain_futures(futures: list) -> list[list[int]]:
+def drain_futures(futures: list) -> list:
     """Download several instances' pending round evals in ONE device→host
     copy (one synchronisation per round per stage). Each entry is an (m, 8)
-    word tensor, as round_evals_device returns it; each decodes to m
-    canonical ints: every kernel returns finished Montgomery words, so no
-    entry needs a decode of its own."""
-    if not futures:
-        return []
-    big = torch.cat([a.reshape(-1, 8) for a in futures]).to("cpu")
+    word tensor, as round_evals_many returns it, or None, which stays None;
+    each tensor decodes to m canonical ints: every kernel returns finished
+    Montgomery words, so no entry needs a decode of its own."""
+    live = [a for a in futures if a is not None]
+    if not live:
+        return [None] * len(futures)
+    big = torch.cat([a.reshape(-1, 8) for a in live]).to("cpu")
     out, off = [], 0
     for a in futures:
+        if a is None:
+            out.append(None)
+            continue
         m = a.numel() // 8
         out.append(limb.decode(big[off: off + m]))
         off += m
     return out
+
+
+def round_evals_many(engines) -> list:
+    """The (degree+1, 8) device evals of several DeviceProductTables'
+    current round, from one grouped launch of kernels 2-3 (no host sync).
+    A None entry, or an engine whose narrow tail has moved to the host,
+    gets None: callers take its round_evals. Download the futures with
+    drain_futures."""
+    on_dev = []
+    for e in engines:
+        if e is None:
+            continue
+        if e._needs_tail():
+            e._to_host()
+        if e._host is None:
+            on_dev.append(e)
+    evs = iter(product_evals([(e.tables[: e.k], e.live // 2, e.degree)
+                              for e in on_dev]))
+    return [next(evs) if e is not None and e._host is None else None
+            for e in engines]
 
 
 def resolve_device(device) -> torch.device:
@@ -126,14 +151,8 @@ class DeviceProductTables:
     def round_evals_device(self):
         """The (degree+1, 8) evals as a device tensor (no host sync), or None
         once the narrow tail has moved to host (callers then use
-        round_evals). Batching callers download several instances' evals
-        at once (drain_futures)."""
-        if self._needs_tail():
-            self._to_host()
-        if self._host is not None:
-            return None
-        return product_evals(self.tables[: self.k], self.live // 2,
-                             self.degree)
+        round_evals): round_evals_many over this engine alone."""
+        return round_evals_many([self])[0]
 
     def _tail_round_evals(self) -> list[int]:
         from ..native.frvec import FrVec

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ..transcript import Blake2bTranscript
 from ..vm import pad_with_noop, run_elf
 from .commitments import CommitmentPhase, commit_and_absorb, derive_tau
@@ -40,24 +42,34 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
                srs=None, golden_commitments: list[bytes] | None = None,
                stages: int = 7, with_joint_proof: bool = False,
                sound: bool = False, stage1_backend: str = "host",
-               mesh=None,
-               device=None, backend: str | None = None) -> JoltPipelineResult:
+               mesh=None, device="cuda",
+               backend: str = "device") -> JoltPipelineResult:
     """Full Jolt-format proof for an ELF. `golden_commitments` replaces the
     commitment phase with externally-provided GT bytes (for differential
     testing against a proof produced with a different SRS).
 
-    backend="device" runs the wide sumcheck rounds of stages 1-4 as torch
-    tensors on `device` ("cuda" launches the hand-written kernels of
-    zolt_tpu_torch/csrc, "cpu" their plain torch versions); backend=None
-    keeps every round on the host C tier. Both give the same bytes."""
+    backend="device" (the default) runs the wide sumcheck rounds of stages
+    1-4 as torch tensors on `device`: "cuda" (the default) launches the
+    hand-written kernels of zolt_tpu_torch/csrc and raises where there is
+    no CUDA device, "cpu" runs their plain torch versions. backend="host"
+    keeps every round on the host C tier. All give the same bytes."""
     if backend == "mesh" or mesh is not None:
         raise NotImplementedError(
             "backend='mesh' is not ported yet (ROADMAP Queue 1 item 13)")
     if sound:
         raise NotImplementedError(
             "sound=True is not ported yet (ROADMAP Queue 1 items 10-11)")
-    if backend == "device" and device is None:
-        raise ValueError("backend='device' needs an explicit device")
+    if backend not in ("device", "host"):
+        raise ValueError(f"backend {backend!r}: 'device' or 'host'")
+    if backend == "device":
+        if device is None:
+            raise ValueError("backend='device' needs an explicit device")
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("prove_jolt runs on the GPU by default and "
+                               "there is no CUDA device; pass device='cpu' "
+                               "or backend='host'")
+    else:
+        backend = device = None         # the stages' spelling of the host tier
     emu = run_elf(elf_path)
     padded = pad_with_noop(list(emu.trace))
     trace_length = len(padded)

@@ -164,7 +164,8 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
 
     engines = None
     if backend == "device" and T >= 4:
-        from ..parallel.stage_engine import DeviceProductTables, drain_futures
+        from ..parallel.stage_engine import (DeviceProductTables,
+                                             drain_futures, round_evals_many)
 
         if dev_store is not None:
             # Raw-upload tier (parallel/device_cols): every engine table is
@@ -224,17 +225,9 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
 
     for rnd in range(n_cycle_vars):
         if engines is not None:
-            evs: list = [None] * len(engines)
-            futs, fut_ids = [], []
-            for i, e in enumerate(engines):
-                d = e.round_evals_device()
-                if d is None:
-                    evs[i] = e.round_evals()
-                else:
-                    futs.append(d)
-                    fut_ids.append(i)
-            for i, vals in zip(fut_ids, drain_futures(futs)):
-                evs[i] = vals
+            # the seven instances in one grouped launch, one download
+            evs = [e.round_evals() if v is None else v for e, v in
+                   zip(engines, drain_futures(round_evals_many(engines)))]
             ab, cd = evs[0], evs[1]
             rr_r2, ri_im, lr_r1, lp_up = evs[2], evs[3], evs[4], evs[5]
             gg = evs[6]

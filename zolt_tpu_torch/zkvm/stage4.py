@@ -601,12 +601,12 @@ class ValEvaluationProver:
     def _len(self) -> int:
         return self._eng.live if self._eng is not None else self.inc.n
 
-    def eval_future(self):
-        """Device (4, 8) eval words for this round, or None when on host
-        (the stage loop batches futures into one download per round)."""
+    def device_engine(self):
+        """The device engine of this round, or None when on host (the stage
+        loop evaluates every engine of the round in one grouped launch)."""
         if self._eng is None or self._len() // 2 == 0:
             return None
-        return self._eng.round_evals_device()
+        return self._eng
 
     def round_evals(self, pre: list[int] | None = None) -> list[int]:
         from ..native.frvec import FrVec
@@ -676,10 +676,10 @@ class ValFinalProver:
     def _len(self) -> int:
         return self._eng.live if self._eng is not None else self.inc.n
 
-    def eval_future(self):
+    def device_engine(self):
         if self._eng is None or self._len() // 2 == 0:
             return None
-        return self._eng.round_evals_device()
+        return self._eng
 
     def round_evals(self, pre: list[int] | None = None) -> list[int]:
         from ..native.frvec import FrVec
@@ -829,27 +829,16 @@ def prove_stage4(transcript, padded_steps, accesses, initial_ram,
     for rnd in range(max_rounds):
         remaining = max_rounds - rnd
         combined = [0, 0, 0, 0]
-        # prefetch the device-backed instances' evals in one download
+        # the device-backed instances' evals: one grouped launch, one
+        # download
         pre_ve = pre_vf = None
         if backend == "device":
-            from ..parallel.stage_engine import drain_futures
+            from ..parallel.stage_engine import drain_futures, round_evals_many
 
-            futs, tags = [], []
-            if remaining <= rounds[1]:
-                f = val_eval.eval_future()
-                if f is not None:
-                    futs.append(f)
-                    tags.append("ve")
-            if remaining <= rounds[2]:
-                f = val_final.eval_future()
-                if f is not None:
-                    futs.append(f)
-                    tags.append("vf")
-            for tag, vals in zip(tags, drain_futures(futs)):
-                if tag == "ve":
-                    pre_ve = vals
-                else:
-                    pre_vf = vals
+            engs = [p.device_engine() if remaining <= nr else None
+                    for p, nr in ((val_eval, rounds[1]),
+                                  (val_final, rounds[2]))]
+            pre_ve, pre_vf = drain_futures(round_evals_many(engs))
         regs_evals = regs.round_evals(rnd, regs_claim)
         for j in range(4):
             combined[j] = (combined[j] + regs_evals[j] * alphas[0]) % P
