@@ -17,27 +17,35 @@ Phases, one status line each; the first failure ends the run non-zero:
    tensors and against the host C tier (FrVec.fold_adj, prod_evals_adj,
    gruen_quad), at the shapes of the main path (stage-1 az/bz n = 2^17,
    engines n = 2^16, k = 2 and 3, degree 2 and 3, the live prefix halving
-   down to 1 pair). The grouped product-evals kernel also takes mixed
-   groups (k, n, degree 0-3, live counts down to 0) in one launch, three
-   launches back to back (its ticket counters must reset), and 2^21
-   entries; both of its schedules (a thread a pair, four threads a pair)
-   at each live count of the path's rounds. Exact: every value is a
+   down to 1 pair). The grouped fold also takes stage 3's seven engines
+   (26 tables) in one launch. The grouped product-evals kernel also takes
+   mixed groups (k, n, degree 0-3, live counts down to 0) in one launch,
+   three launches back to back (its ticket counters must reset), and 2^21
+   entries. The Gruen round runs its three modes (eval, fold then eval,
+   fold) down the path's rounds, at the level offsets the split eq gives
+   (h_in = 8 early, 0 late). Both schedules of the product evals (a thread
+   a pair, four threads a pair) at each live count of the path's rounds,
+   and of the Gruen round's eval-only pass (a thread a pair, two threads a
+   pair) on both sides of their crossover. Exact: every value is a
    canonical field element, so the tolerance is 0. Times each kernel per
-   call (CUDA events) and on the device alone (torch.profiler), beside its
-   bound (bytes at the HBM rate or IMADs at the integer peak) and its
-   plain version per call; the product evals on each side of the
-   schedules' threshold and at stage 3's round 0 (seven groups, one
-   launch).
+   call (CUDA events) and on the device alone
+   (torch.profiler), beside its bound (bytes at the HBM rate or IMADs at
+   the integer peak; the wrappers' `work` counts) and its plain version
+   per call.
 4. slice: the sum-loop guest (the repo bench's guest) at T = 2^log_t.
    prove_jolt with its defaults (backend="device", device="cuda") with the
    host tail pinned to 0, so every sumcheck round of stages 1-4 runs on the
-   GPU; the same prove again under torch.profiler, which counts the
-   kernels on the device (no product-evals reduce pass may run; with
-   --profile also under cProfile); the host-tier prove (backend="host");
-   the device prove at the default tail. The three unprofiled proofs must
-   be equal, and at T = 2^16 their sha256 must equal the digest the JAX
-   package (zolt_tpu) computes for the same guest on the CPU. Every kernel
-   must have launched during the tail-0 device prove.
+   GPU, with its peak device memory; the same prove again under
+   torch.profiler, which counts the kernels on the device: its counts
+   must equal the wrappers' (no zfr_reduce_partials may run, and the
+   fold may take no group beyond the product engines' evaluated groups:
+   the outer-round engines fold in the Gruen round's pass; with --profile
+   also under cProfile); the host-tier prove (backend="host"); the device prove at
+   the default tail. The three unprofiled proofs must be equal, and at
+   T = 2^16 their sha256 must equal the digest the JAX package (zolt_tpu)
+   computes for the same guest on the CPU. Every kernel must have
+   launched during the tail-0 device prove. Each kernel's path bound is
+   the bound of the bytes and IMADs its wrapper counted over that prove.
 
 The last three lines are the kernels' JSON, the nvidia-smi card line and
 the result JSON.
@@ -60,17 +68,15 @@ import time
 JAX_DIGEST_T16 = (
     "3f55108bedaa1c9c70df9394b406a84fc7093048e519041957bf9b38c916ed62")
 
-# (name, source, the pallas_call it replaces). The fold also replaces
-# fold_tail_stack (:589), fold_rows_stack (:689) and fold_shared (:424);
-# gruen_eval replaces the eval half of product_round.
+# (name, source, the pallas_call sites it replaces).
 KERNELS = [
     ("fold", "zolt_tpu_torch/csrc/fold.cu",
-     "zolt_tpu/field/pallas_redc.py:516"),
+     "zolt_tpu/field/pallas_redc.py:424,516,589,689"),
     ("product_evals_k2", "zolt_tpu_torch/csrc/product_evals.cu",
      "zolt_tpu/field/pallas_redc.py:754"),
     ("product_evals_k3", "zolt_tpu_torch/csrc/product_evals.cu",
      "zolt_tpu/field/pallas_redc.py:878"),
-    ("gruen_eval", "zolt_tpu_torch/csrc/gruen_eval.cu",
+    ("gruen_round", "zolt_tpu_torch/csrc/gruen_round.cu",
      "zolt_tpu/field/pallas_kernels.py:191"),
 ]
 
@@ -125,46 +131,16 @@ def device_ms(torch, fn, iters: int) -> float:
 # throughput table for compute capability 9.0) x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
-# IMADs, counting lo and hi of a 32x32-bit word product as two: a 256x256
-# bit product, and a Montgomery product with its REDC.
-WIDE_IMADS = 128
-MONT_IMADS = 272
 
 
 def bound(nbytes: int, imads: int) -> tuple[float, str]:
     """The least time (ms) the card could take: the bytes moved once at the
-    HBM rate or the IMADs at the integer peak, whichever is longer."""
+    HBM rate or the IMADs at the integer peak, whichever is longer. The
+    wrappers count both (`work` in field/fold.py, evals.py, gruen.py; a
+    32x32-bit word product is two IMADs)."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = imads / IMAD_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def eval_work(groups) -> tuple[int, int]:
-    """Bytes and IMADs the product evals need for these groups: each live
-    pair's K entries of 64 bytes read once, the evals written once; K = 2
-    sums min(degree, 2) + 1 products a pair, K = 3 forms that many reduced
-    products and sums degree + 1."""
-    nbytes = imads = 0
-    for tabs, live, deg in groups:
-        k = tabs.shape[0]
-        nbytes += k * live * 64 + (deg + 1) * 32
-        pts = min(deg, 2) + 1
-        imads += live * (pts * WIDE_IMADS if k == 2 else
-                         pts * MONT_IMADS + (deg + 1) * WIDE_IMADS)
-    return nbytes, imads
-
-
-def gruen_work(live: int, h_in: int) -> tuple[int, int]:
-    """Bytes and IMADs the Gruen round needs: az and bz of each live pair
-    read once, the eq entries it weights them by, two evals written. A pair
-    needs its two reduced products (a0·b0 and Δa·Δb) and their two products
-    by E_in, which feed a sum and stay wide; each E_out entry weights its
-    block of 2^h_in pairs once: a reduction of each of the block's two sums
-    and a product by E_out, a Montgomery product's worth."""
-    blocks = -(-live // (1 << h_in))
-    nbytes = 2 * live * 64 + (blocks + min(live, 1 << h_in)) * 32 + 2 * 32
-    imads = live * 2 * (MONT_IMADS + WIDE_IMADS) + blocks * 2 * MONT_IMADS
-    return nbytes, imads
 
 
 def timings(torch, stats: dict, name: str, kernel, plain, nbytes: int,
@@ -204,76 +180,206 @@ def max_abs(torch, a, b) -> int:
 
 
 def check_kernels(torch, stats: dict) -> None:
-    from zolt_tpu_torch.field import evals, fold, gruen, limb
-    from zolt_tpu_torch.native.frvec import FrVec
-
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20261016)
-    r = 0x1234567890ABCDEF1234567890ABCDEF % (1 << 250)
+    check_fold(torch, gen, stats)
+    check_product_evals(torch, gen, stats)
+    check_gruen(torch, gen, stats)
 
-    # kernel 1: stage-1 az/bz (2, 2^17) and a k=3 engine stack (3, 2^16)
+
+# Stage 3's seven engines, tables each (factors and passengers), n = 2^16:
+# their folds run in one launch every round.
+STAGE3_TABLES = (7, 2, 3, 3, 3, 3, 5)
+
+
+def check_fold(torch, gen, stats: dict) -> None:
+    """Kernel 1, one grouped kernel, against fold_plain and FrVec.fold_adj
+    (max_abs_err 0): stage-1 az/bz (2, 2^17) and a k = 3 engine stack (3,
+    2^16) as the live prefix halves to 1 pair; stage 3's seven engines at
+    round 0 in one launch, each its own r. Times one group at (2, 2^17)
+    with 2^16 live pairs, and stage 3's round 0."""
+    from zolt_tpu_torch.field import fold, limb
+
+    r = 0x1234567890ABCDEF1234567890ABCDEF % (1 << 250)
     err = 0
     for k, log_n in ((2, 17), (3, 16)):
         n = 1 << log_n
         live = n // 2
         while live >= 1:
-            tabs = rand_tables(torch, gen, k, n, 2 * live)
+            tabs = rand_tables(torch, gen, k, 2 * live, 2 * live)
             got = fold.fold(tabs, r, live)
-            plain = fold.fold_plain(tabs, r, live)
-            err = max(err, max_abs(torch, got, plain))
-            if got[:, live:].any():
-                raise AssertionError("fold left a non-zero tail")
-            host = limb.words_to_frvec(tabs[k - 1, : 2 * live]).fold_adj(r)
-            if not torch.equal(got[k - 1, :live].cpu(),
-                               limb.frvec_to_words(host)):
+            err = max(err, max_abs(torch, got, fold.fold_plain(tabs, r, live)))
+            host = limb.words_to_frvec(tabs[k - 1]).fold_adj(r)
+            if got.shape != (k, live, 8) or not torch.equal(
+                    got[k - 1].cpu(), limb.frvec_to_words(host)):
                 raise AssertionError(f"fold != FrVec.fold_adj at n={n} "
                                      f"live={live}")
             live //= 4 if live > 64 else 2
+    n = 1 << 16
+    g7 = [(rand_tables(torch, gen, k, n, n), r + 7919 * i, n // 2)
+          for i, k in enumerate(STAGE3_TABLES)]
+    before = fold.fold_many.counts["launches"]
+    for out, want in zip(fold.fold_many(g7), fold.fold_many_plain(g7)):
+        err = max(err, max_abs(torch, out, want))
+    if fold.fold_many.counts["launches"] != before + 1:
+        raise AssertionError("stage 3's folds took more than one launch")
     if err:
         raise AssertionError(f"fold differs from its plain version: {err}")
     tabs = rand_tables(torch, gen, 2, 1 << 17, 1 << 17)
-    # reads 2 x 2^16 live pairs, writes 2 x 2^17 slots; a product a pair
     timings(torch, stats, "fold", lambda: fold.fold(tabs, r, 1 << 16),
-            lambda: fold.fold_plain(tabs, r, 1 << 16),
-            2 * (1 << 16) * 64 + 2 * (1 << 17) * 32,
-            2 * (1 << 16) * MONT_IMADS, "(2, 2^17, 8), live 2^16", err)
+            lambda: fold.fold_plain(tabs, r, 1 << 16), *fold.work(2, 1 << 16),
+            "(2, 2^17, 8), live 2^16", err)
+    w7 = [sum(x) for x in zip(*(fold.work(t.shape[0], live)
+                                for t, _, live in g7))]
+    timings(torch, stats, "fold_stage3_round0", lambda: fold.fold_many(g7),
+            lambda: fold.fold_many_plain(g7), *w7,
+            "stage 3 round 0: 7 groups, 26 x (2^16, 8), 2^15 live pairs, "
+            "one launch", err)
 
-    check_product_evals(torch, gen, stats)
 
-    # kernel 4: stage-1 az/bz n = 2^17 with 9-level E_out/E_in stacks
-    n = 1 << 17
-    levels = 9
-    flat = (1 << levels) - 1
+# The split eq of stage 1's remaining rounds (17 variables): E_out and
+# E_in stacks of 9 levels; a round of 2^lg pairs takes h_in = lg − 8 while
+# that is positive (E_out at level 8), then h_in = 0.
+EQ_LEVELS = 9
+
+
+def level_args(lg: int) -> tuple[int, int, int, int]:
+    """(off_out, off_in, h_in, lvl_out) of a round of 2^lg pairs."""
+    h_in = max(0, lg - (EQ_LEVELS - 1))
+    lvl_out = lg - h_in
+    return (1 << lvl_out) - 1, (1 << h_in) - 1, h_in, lvl_out
+
+
+def check_gruen(torch, gen, stats: dict) -> None:
+    """Kernel 4 in its three modes down the path's rounds: eval (pairs from
+    2^16), fold then eval (folds from 2^16 pairs), fold (a flush), against
+    gruen_round_plain and the host tier (FrVec.fold_adj, gruen_quad),
+    max_abs_err 0. Then both schedules at each live count, and the times:
+    each mode at (2, 2^17) with h_in = 8 (the fused pass evaluates 2^15
+    pairs at h_in = 7), and the fused pass of a late round, h_in = 0."""
+    from zolt_tpu_torch.field import gruen, limb
+    from zolt_tpu_torch.native.frvec import FrVec
+
+    flat = (1 << EQ_LEVELS) - 1
     e_out = rand_tables(torch, gen, 1, flat, flat)[0]
     e_in = rand_tables(torch, gen, 1, flat, flat)[0]
+    r = 0x0FEDCBA987654321 << 120
     err = 0
-    live = n // 2
-    while live >= 1:
-        lg = live.bit_length() - 1
-        h_in = min(levels - 1, lg)
-        lvl_out = lg - h_in
-        off_out, off_in = (1 << lvl_out) - 1, (1 << h_in) - 1
-        ab = rand_tables(torch, gen, 2, n, 2 * live)
-        args = (ab[0], ab[1], e_out, e_in, off_out, off_in, h_in, live)
-        got = gruen.gruen_eval(*args)
-        plain = gruen.gruen_eval_plain(*args)
-        err = max(err, max_abs(torch, got, plain))
-        host = FrVec.gruen_quad(
-            limb.words_to_frvec(e_out[off_out: off_out + (1 << lvl_out)]),
-            limb.words_to_frvec(e_in[off_in: off_in + (1 << h_in)]), h_in,
-            limb.words_to_frvec(ab[0, : 2 * live]),
-            limb.words_to_frvec(ab[1, : 2 * live]), live)
-        if tuple(limb.decode(got)) != tuple(host):
-            raise AssertionError(f"gruen_eval != FrVec.gruen_quad at "
-                                 f"live {live}")
-        live //= 4 if live > 64 else 2
+
+    def args_of(mode: str, live: int):
+        pairs = live // 2 if mode == "fused" else live
+        off_out, off_in, h_in, _ = level_args(max(pairs, 1).bit_length() - 1)
+        ab = rand_tables(torch, gen, 2, 2 * live, 2 * live)
+        return (ab, None if mode == "eval" else r, e_out, e_in, off_out,
+                off_in, h_in, live, mode != "fold"), pairs
+
+    for mode in ("eval", "fused", "fold"):
+        live = 1 << 16
+        while live >= 1:
+            args, pairs = args_of(mode, live)
+            tabs, ev = gruen.gruen_round(*args)
+            want_tabs, want_ev = gruen.gruen_round_plain(*args)
+            err = max(err, max_abs(torch, tabs, want_tabs))
+            if ev is not None:
+                err = max(err, max_abs(torch, ev, want_ev))
+            ab, off_out, off_in, h_in = args[0], args[4], args[5], args[6]
+            host = [limb.words_to_frvec(ab[j]) for j in (0, 1)]
+            if mode != "eval":
+                host = [v.fold_adj(r) for v in host]
+                if not all(torch.equal(tabs[j].cpu(),
+                                       limb.frvec_to_words(host[j]))
+                           for j in (0, 1)):
+                    raise AssertionError(f"gruen_round ({mode}) fold != "
+                                         f"FrVec.fold_adj at live {live}")
+            if ev is not None and pairs:
+                lvl_out = (pairs.bit_length() - 1) - h_in
+                want = FrVec.gruen_quad(
+                    limb.words_to_frvec(e_out[off_out: off_out
+                                              + (1 << lvl_out)]),
+                    limb.words_to_frvec(e_in[off_in: off_in + (1 << h_in)]),
+                    h_in, host[0], host[1], pairs)
+                if tuple(limb.decode(ev)) != tuple(want):
+                    raise AssertionError(f"gruen_round ({mode}) != "
+                                         f"FrVec.gruen_quad at live {live}")
+            live //= 4 if live > 64 else 2
     if err:
-        raise AssertionError("gruen_eval differs from its plain version")
-    ab = rand_tables(torch, gen, 2, n, n)
-    args = (ab[0], ab[1], e_out, e_in, (1 << 8) - 1, (1 << 8) - 1, 8, n // 2)
-    timings(torch, stats, "gruen_eval", lambda: gruen.gruen_eval(*args),
-            lambda: gruen.gruen_eval_plain(*args), *gruen_work(n // 2, 8),
-            "az, bz (2^17, 8), h_in 8", err)
+        raise AssertionError(f"gruen_round differs from its plain version: "
+                             f"{err}")
+    if gruen._scratch(e_out.device).any():
+        raise AssertionError("gruen_round left its scratch non-zero")
+    say("kernels", "gruen_round exact (max_abs_err 0) vs plain and FrVec in "
+                   "its three modes down the path's rounds")
+    gruen_sweep(torch, gen, stats)
+    shapes = (("gruen_round", "eval", 1 << 16,
+               "eval: az, bz (2^17, 8), 2^16 pairs, h_in 8"),
+              ("gruen_round_fused", "fused", 1 << 16,
+               "fold 2^16 pairs of (2, 2^17, 8), eval 2^15 pairs, h_in 7"),
+              ("gruen_round_fold", "fold", 1 << 16,
+               "fold: (2, 2^17, 8), 2^16 live pairs"),
+              ("gruen_round_late", "fused", 1 << 8,
+               "fold 2^8 pairs, eval 2^7 pairs, h_in 0"))
+    for name, mode, live, shape in shapes:
+        args, pairs = args_of(mode, live)
+        e = max_abs(torch, gruen.gruen_round(*args)[0],
+                    gruen.gruen_round_plain(*args)[0])
+        timings(torch, stats, name, lambda: gruen.gruen_round(*args),
+                lambda: gruen.gruen_round_plain(*args),
+                *gruen.work(live if mode != "eval" else 0,
+                            pairs if mode != "fold" else 0, args[6]),
+                shape, max(e, err))
+
+
+def gruen_sweep(torch, gen, stats: dict) -> None:
+    """The Gruen round's schedules down the path's live counts. An
+    eval-only pass (each engine's first round) forced in turn to a thread
+    a pair and to two threads a pair, on both sides of
+    gruen.SPLIT_MAX_PAIRS, where the wrapper changes from two to one; a
+    fused pass (folds of 2^lg pairs, evals of half as many; 2^16 folded
+    pairs is stage 1's widest, and two counts beyond it) in its one
+    schedule, two threads a pair. Each exact against the plain version,
+    at the split eq's level offsets, with its device time."""
+    from zolt_tpu_torch.field import gruen
+
+    chosen = gruen.SPLIT_MAX_PAIRS
+    rows = stats["gruen_round_schedules"] = []
+    flat = (1 << (EQ_LEVELS + 2)) - 1        # h_in up to 10
+    e_out = rand_tables(torch, gen, 1, flat, flat)[0]
+    e_in = rand_tables(torch, gen, 1, flat, flat)[0]
+    ab = rand_tables(torch, gen, 2, 1 << 19, 1 << 19)
+    # (mode, log2 of the pairs the pass takes, schedules to force)
+    both = (("pair", -1), ("split", 1 << 62))
+    points = ([("eval", lg, both) for lg in range(17, 12, -1)]
+              + [("fused", lg, both[1:]) for lg in range(18, 0, -1)])
+    try:
+        for mode, lg, forced in points:
+            quads = 1 << (lg - 1 if mode == "fused" else lg)
+            off_out, off_in, h_in, _ = level_args(quads.bit_length() - 1)
+            args = (ab, 12345 if mode == "fused" else None, e_out, e_in,
+                    off_out, off_in, h_in, 1 << lg)
+            want = gruen.gruen_round_plain(*args)
+            ms = {}
+            for name, cut in forced:
+                gruen.SPLIT_MAX_PAIRS = cut
+                got = gruen.gruen_round(*args)
+                if max_abs(torch, got[0], want[0]) or max_abs(
+                        torch, got[1], want[1]):
+                    raise AssertionError(f"gruen_round ({name}) differs from "
+                                         f"its plain version at {mode} 2^{lg}")
+                ms[name] = device_ms(torch, lambda: gruen.gruen_round(*args),
+                                     50)
+            takes = ("split" if mode == "fused" or quads <= chosen
+                     else "pair")
+            rows.append(dict(mode=mode, log2=lg, h_in=h_in, **ms,
+                             takes=takes))
+            times = ", ".join(
+                f"{'a thread' if k == 'pair' else 'two threads'} a pair "
+                f"{v:.4f} ms" for k, v in ms.items())
+            say("kernels", f"gruen_round {mode} at 2^{lg} pairs (h_in "
+                           f"{h_in}), exact: {times} on the device; the "
+                           f"wrapper takes "
+                           f"{'two' if takes == 'split' else 'one'}")
+    finally:
+        gruen.SPLIT_MAX_PAIRS = chosen
 
 
 # Mixed groups for one launch, (k, n, live_pairs, degree): k = 2 and 3,
@@ -344,7 +450,7 @@ def check_product_evals(torch, gen, stats: dict) -> None:
         g = [(tabs, n // 2, deg)]
         timings(torch, stats, f"product_evals_k{k}",
                 lambda: evals.product_evals(g),
-                lambda: evals.product_evals_plain(*g[0]), *eval_work(g),
+                lambda: evals.product_evals_plain(*g[0]), *evals.work(g),
                 f"({k}, 2^16, 8), degree {deg}", err[k])
         # the other side of the threshold: four threads a pair
         g2 = [(tabs, split, deg)]
@@ -355,7 +461,7 @@ def check_product_evals(torch, gen, stats: dict) -> None:
                                  f"version at {split} live pairs: {e2}")
         timings(torch, stats, f"product_evals_k{k}_split",
                 lambda: evals.product_evals(g2),
-                lambda: evals.product_evals_plain(*g2[0]), *eval_work(g2),
+                lambda: evals.product_evals_plain(*g2[0]), *evals.work(g2),
                 f"({k}, 2^16, 8), {split} live pairs, degree {deg}", e2)
     # stage 3, round 0: 3 x (k = 2, degree 2) + 4 x (k = 3, degree 3)
     g7 = ([(rand_tables(torch, gen, 2, n, n), n // 2, 2) for _ in range(3)]
@@ -363,7 +469,7 @@ def check_product_evals(torch, gen, stats: dict) -> None:
     timings(torch, stats, "product_evals_stage3_round0",
             lambda: evals.product_evals(g7),
             lambda: [evals.product_evals_plain(*g) for g in g7],
-            *eval_work(g7), "stage 3 round 0: 3 x (2, 2^16, 8) degree 2 + "
+            *evals.work(g7), "stage 3 round 0: 3 x (2, 2^16, 8) degree 2 + "
             "4 x (3, 2^16, 8) degree 3, one launch", max(err.values()))
 
 
@@ -440,12 +546,12 @@ def timed_prove(torch, path: str, **kw):
     return blob, wall, {k: round(v, 4) for k, v in metrics.timings.items()}
 
 
-def profiled_prove(torch, path: str, out: str | None) -> tuple[dict, dict]:
+def profiled_prove(torch, path: str, out: str | None):
     """One more tail-0 device prove under torch.profiler (device time by
     kernel), and under cProfile (host time by function) when `out` is
-    given, which then writes out.txt. Returns the kernels' launches seen on
-    the device by name, and the product evals' wrapper counts in this
-    prove."""
+    given, which then writes out.txt. Returns the kernels' launches and
+    device ms seen on the device by name, and the wrappers' launch counts
+    in this prove."""
     import cProfile
     import io
     import pstats
@@ -479,46 +585,54 @@ def profiled_prove(torch, path: str, out: str | None) -> tuple[dict, dict]:
     on_dev, dev_ms = device_kernel_counts(rows)
     say("slice", f"the kernels in the profiled prove: launches {on_dev}, "
                  f"device ms {dev_ms}")
-    return on_dev, counts
+    return on_dev, dev_ms, counts
+
+
+def counters() -> dict:
+    """The wrappers' counter dicts by kernel."""
+    from zolt_tpu_torch.field import evals, fold, gruen
+
+    return {"fold": fold.fold_many.counts,
+            "product_evals": evals.product_evals.counts,
+            "gruen_round": gruen.gruen_round.counts}
 
 
 def reset_launches() -> None:
-    from zolt_tpu_torch.field import evals, fold, gruen
-
-    fold.fold.launches = 0
-    counts = evals.product_evals.counts
-    counts.update(dict.fromkeys(counts, 0))
-    gruen.gruen_eval.launches = 0
+    for c in counters().values():
+        c.update(dict.fromkeys(c, 0))
 
 
 def read_launches() -> tuple[dict, dict]:
     """The wrappers' launch counts per kernel entry of the JSON line (a
-    grouped product-evals launch counts for each k it carried), and the
-    product evals' own counters."""
-    from zolt_tpu_torch.field import evals, fold, gruen
+    grouped product-evals launch counts for each k it carried), and a copy
+    of every wrapper's counters (launches, bytes and IMADs)."""
+    c = {k: dict(v) for k, v in counters().items()}
+    pe = c["product_evals"]
+    return {"fold": c["fold"]["launches"],
+            "product_evals_k2": pe["launches_k2"],
+            "product_evals_k3": pe["launches_k3"],
+            "gruen_round": c["gruen_round"]["launches"]}, c
 
-    c = dict(evals.product_evals.counts)
-    return {"fold": fold.fold.launches,
-            "product_evals_k2": c["launches_k2"],
-            "product_evals_k3": c["launches_k3"],
-            "gruen_eval": gruen.gruen_eval.launches}, c
+
+# kernel -> the name torch.profiler shows for it on the device
+DEVICE_NAMES = {"fold": "fold_kernel", "product_evals": "product_evals_kernel",
+                "gruen_round": "gruen_round_kernel",
+                "reduce_partials": "zfr_reduce_partials"}
 
 
 def device_kernel_counts(rows) -> tuple[dict, dict]:
     """Launches seen on the device by torch.profiler, and their device
     milliseconds, by kernel name."""
-    names = {"fold": "fold_kernel", "product_evals": "product_evals_kernel",
-             "gruen_eval": "gruen_eval_kernel",
-             "reduce_partials<2>": "zfr_reduce_partials<2>",
-             "reduce_partials<4>": "zfr_reduce_partials<4>"}
     counts = {k: sum(e.count for e in rows if v in e.key)
-              for k, v in names.items()}
+              for k, v in DEVICE_NAMES.items()}
     ms = {k: round(device_us([e for e in rows if v in e.key]) / 1e3, 4)
-          for k, v in names.items()}
+          for k, v in DEVICE_NAMES.items()}
     return counts, ms
 
 
-def run_slice(torch, log_t: int, profile: str | None) -> dict:
+def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
+    """The four proves; returns the launches per JSON entry and the path
+    figures per kernel (launches, bound over the counted work, device ms)."""
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "sum_loop.elf")
         with open(path, "wb") as f:
@@ -526,20 +640,53 @@ def run_slice(torch, log_t: int, profile: str | None) -> dict:
 
         os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
         reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         dev, dev_s, dev_stages = timed_prove(torch, path)
-        launches, ev = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        launches, work = read_launches()
         say("slice", f"device prove (defaults: backend 'device', 'cuda'), "
-                     f"tail 0: {dev_s:.3f} s {dev_stages}")
-        say("slice", f"launches on the main path: {launches}; product "
-                     f"evals: {ev}")
-        on_dev, prof_ev = profiled_prove(torch, path, profile)
-        if on_dev["reduce_partials<4>"]:
-            raise AssertionError("a product-evals reduce pass ran on the path")
-        if not on_dev["product_evals"] == prof_ev["launches"] == ev["launches"]:
-            raise AssertionError(f"product-evals launches: the profiler saw "
-                                 f"{on_dev['product_evals']}, the wrapper "
-                                 f"counted {prof_ev['launches']} there and "
-                                 f"{ev['launches']} in the timed prove")
+                     f"tail 0: {dev_s:.3f} s {dev_stages}; peak device "
+                     f"memory {peak} bytes ({peak / 2 ** 20:.1f} MiB)")
+        say("slice", f"launches on the main path: {launches}; counters: "
+                     f"{work}")
+        on_dev, dev_ms, prof = profiled_prove(torch, path, profile)
+        if on_dev["reduce_partials"]:
+            raise AssertionError("a zfr_reduce_partials pass ran on the path")
+        for k in ("fold", "product_evals", "gruen_round"):
+            if not (on_dev[k] == prof[k]["launches"]
+                    == work[k]["launches"]):
+                raise AssertionError(
+                    f"{k} launches: the profiler saw {on_dev[k]}, the "
+                    f"wrapper counted {prof[k]['launches']} there and "
+                    f"{work[k]['launches']} in the timed prove")
+        # every product engine folds each group it evaluated once (its
+        # last bind flushed before its finals); a fold from an outer-round
+        # engine would add groups
+        pe = work["product_evals"]
+        if work["fold"]["groups"] != pe["groups_k2"] + pe["groups_k3"]:
+            raise AssertionError(
+                f"the fold took {work['fold']['groups']} groups, the product "
+                f"engines evaluated {pe['groups_k2'] + pe['groups_k3']}")
+        # at T = 2^16: fold 3 x 15 rounds + flushes (<= 52), Gruen 17 + 16
+        if log_t >= 4 and (launches["fold"] > 3 * log_t + 4
+                           or launches["gruen_round"] > 2 * log_t + 3):
+            raise AssertionError(f"more launches than one a round: "
+                                 f"{launches}")
+        path_stats = {}
+        for k in ("fold", "product_evals", "gruen_round"):
+            b_ms, b_by = bound(work[k]["bytes"], work[k]["imads"])
+            path_stats[k] = dict(launches=work[k]["launches"],
+                                 bytes=work[k]["bytes"],
+                                 imads=work[k]["imads"], bound_ms=b_ms,
+                                 bound_by=b_by, device_ms=dev_ms[k])
+            share = (f"{b_ms / dev_ms[k] * 100:.1f} %" if dev_ms[k]
+                     else "not measured")
+            say("slice", f"{k} on the path: {work[k]['launches']} launches, "
+                         f"{work[k]['bytes']} bytes, {work[k]['imads']} "
+                         f"IMADs, bound {b_ms:.4f} ms by {b_by}, device "
+                         f"{dev_ms[k]:.4f} ms, share {share}")
+        path_stats["peak_bytes"] = peak
 
         host, host_s, host_stages = timed_prove(torch, path, backend="host")
         say("slice", f"host-tier prove: {host_s:.3f} s {host_stages}")
@@ -566,7 +713,7 @@ def run_slice(torch, log_t: int, profile: str | None) -> dict:
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    return launches
+    return launches, path_stats
 
 
 def main() -> int:
@@ -610,14 +757,18 @@ def main() -> int:
 
     stats: dict = {}
     check_kernels(torch, stats)
-    launches = run_slice(torch, args.log_t, args.profile)
+    launches, path = run_slice(torch, args.log_t, args.profile)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
-                    **{k: stats[name][k] for k in keys})
-               for name, src, rep in KERNELS]
+    kernels = []
+    for name, src, rep in KERNELS:
+        p = path[name.split("_k")[0]]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                            launches=launches[name],
+                            **{k: stats[name][k] for k in keys},
+                            path_bound_ms=p["bound_ms"],
+                            path_device_ms=p["device_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,17 @@ imports JAX):
 chip_smoke.py holds each kernel to its plain version at the main path's
 shapes; these add the shapes the path does not produce: live prefixes that
 are not powers of two, a single pair, degrees 0-3, and tables large enough
-that every thread walks several grid strides; for the grouped product
-evals, both schedules (a thread a pair, four threads a pair) at every
-live count, mixed groups in one launch (chip_smoke.MIXED_GROUPS), launches
-back to back (the kernel's scratch must return to zero) and more than 16
-groups. Tolerance: exact (equal words), since every value is a canonical
-field element.
+that every thread walks several grid strides; for the grouped fold, mixed
+groups (each with its own k, live prefix and challenge) and more than 16
+groups; for the grouped product evals, both schedules (a thread a pair,
+four threads a pair) at every live count, mixed groups in one launch
+(chip_smoke.MIXED_GROUPS), launches back to back (the kernel's scratch
+must return to zero) and more than 16 groups; for the Gruen round, its
+three modes (eval, fold then eval, fold), the eval-only pass in both
+schedules (a thread a pair, two threads a pair) on each side of the
+crossover, and each of its ways to weight by the eq factors. Every
+wrapper's launch counter must go up by exactly one per launch. Tolerance: exact (equal words), since every
+value is a canonical field element.
 """
 
 import pytest
@@ -47,16 +52,35 @@ def _tables(gen, k: int, n: int, live: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("k,n,live_pairs", [
-    (1, 2, 1), (2, 1000, 37), (3, 4096, 2048), (2, 1 << 21, 1 << 20)])
+    (1, 2, 1), (2, 7, 3), (2, 1000, 37), (3, 4096, 2048),
+    (2, 1 << 21, 1 << 20)])
 def test_fold_kernel_matches_plain(gen, k, n, live_pairs):
     tabs = _tables(gen, k, n, 2 * live_pairs)
     r = 0x2A5C_1234_5678_9ABC_DEF0_1122_3344_5566
-    before = fold.fold.launches
+    before = fold.fold_many.counts["launches"]
     got = fold.fold(tabs, r, live_pairs)
     torch.cuda.synchronize()
-    assert fold.fold.launches == before + 1
+    assert fold.fold_many.counts["launches"] == before + 1
+    assert got.shape == (k, live_pairs, 8)
     assert torch.equal(got, fold.fold_plain(tabs, r, live_pairs))
-    assert not got[:, live_pairs:].any()
+
+
+@pytest.mark.parametrize("ngroups", [7, 20])
+def test_grouped_fold_matches_plain(gen, ngroups):
+    """Mixed groups, each its own k, table, live prefix (0 included) and
+    challenge; 16 groups a launch."""
+    groups = [(_tables(gen, 1 + i % 5, 64 << (i % 7), 64 << (i % 7)),
+               0x1234567 * (i + 1),
+               0 if i == 4 else (32 << (i % 7)) - 3 * (i % 3))
+              for i in range(ngroups)]
+    before = dict(fold.fold_many.counts)
+    got = fold.fold_many(groups)
+    torch.cuda.synchronize()
+    c = fold.fold_many.counts
+    assert c["launches"] == before["launches"] + -(-ngroups // 16)
+    assert c["groups"] == before["groups"] + sum(1 for g in groups if g[2])
+    for out, want in zip(got, fold.fold_many_plain(groups)):
+        assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("split_max", [0, 1 << 62],
@@ -126,11 +150,59 @@ def test_gruen_kernel_matches_plain(gen, live_pairs, h_in, off_out, off_in):
                     1 << 30)[0]
     e_in = _tables(gen, 1, off_in + (1 << h_in), 1 << 30)[0]
     args = (ab[0], ab[1], e_out, e_in, off_out, off_in, h_in, live_pairs)
-    before = gruen.gruen_eval.launches
+    before = gruen.gruen_round.counts["launches"]
     got = gruen.gruen_eval(*args)
     torch.cuda.synchronize()
-    assert gruen.gruen_eval.launches == before + 1
+    assert gruen.gruen_round.counts["launches"] == before + 1
     assert torch.equal(got, gruen.gruen_eval_plain(*args))
+
+
+@pytest.mark.parametrize("mode,split_max", [
+    ("eval", 0), ("eval", 1 << 62), ("fused", 1 << 62), ("fold", 1 << 62)],
+    ids=["eval-thread_a_pair", "eval-two_threads_a_pair",
+         "fused-two_threads_a_pair", "fold-two_threads_a_pair"])
+@pytest.mark.parametrize("live_pairs,h_in", [
+    (1, 0), (2, 0), (3, 1), (96, 3), (1000, 0), (4096, 5), (1 << 13, 9),
+    (1 << 14, 6), (1 << 15, 8), (1 << 17, 8)])
+def test_gruen_round_modes_match_plain(gen, monkeypatch, split_max, mode,
+                                       live_pairs, h_in):
+    """Each mode in each of its schedules (the eval-only pass forced to
+    each in turn, whatever side of gruen.SPLIT_MAX_PAIRS the count lies; a
+    pass that folds always takes two threads a pair), at the live pair
+    counts the kernel weights by E_out a block, by E_in a block (h_in = 0)
+    and by E_in a thread; live_pairs counts the pairs folded in the fold
+    modes."""
+    monkeypatch.setattr(gruen, "SPLIT_MAX_PAIRS", split_max)
+    ab = _tables(gen, 2, 2 * live_pairs, 2 * live_pairs)
+    pairs = live_pairs // 2 if mode == "fused" else live_pairs
+    e_out = _tables(gen, 1, 8 + max(0, (pairs - 1) >> h_in), 1 << 30)[0]
+    e_in = _tables(gen, 1, 5 + (1 << h_in), 1 << 30)[0]
+    r = None if mode == "eval" else 0x5EED_0123_4567_89AB
+    args = (ab, r, e_out, e_in, 7, 5, h_in, live_pairs, mode != "fold")
+    before = dict(gruen.gruen_round.counts)
+    for _ in range(2):                     # the scratch returns to zero
+        tabs, ev = gruen.gruen_round(*args)
+        torch.cuda.synchronize()
+        want_tabs, want_ev = gruen.gruen_round_plain(*args)
+        assert torch.equal(tabs, want_tabs)
+        assert (ev is None) == (want_ev is None)
+        if ev is not None:
+            assert torch.equal(ev, want_ev)
+    c = gruen.gruen_round.counts
+    assert c["launches"] == before["launches"] + 2
+    assert c[mode] == before[mode] + 2
+    assert not gruen._scratch(ab.device).any()
+
+
+def test_gruen_kernel_refuses_a_fold_a_thread_a_pair(gen, monkeypatch):
+    """A pass that folds has one schedule, two threads a pair: the kernel's
+    entry refuses a descriptor that asks for one."""
+    monkeypatch.setattr(gruen, "schedule", lambda quads, h_in, folds: (1, 1))
+    ab = _tables(gen, 2, 64, 64)
+    before = gruen.gruen_round.counts["launches"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gruen.gruen_round(ab, 3, None, None, 0, 0, 0, 32, eval=False)
+    assert gruen.gruen_round.counts["launches"] == before
 
 
 def test_wrappers_refuse_misaligned_tables(gen):
@@ -139,5 +211,7 @@ def test_wrappers_refuse_misaligned_tables(gen):
     assert tabs.is_contiguous() and tabs.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         fold.fold(tabs, 3, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        gruen.gruen_round(tabs, 3, None, None, 0, 0, 0, 8, eval=False)
     with pytest.raises(ValueError, match="aligned"):
         evals.product_evals([(tabs, 8, 2)])

@@ -1,9 +1,12 @@
 """The port's single-device engines against the JAX package's.
 
 - parallel/stage_engine.DeviceProductTables (kernels 1-3 round by round:
-  evals, fold, the host-tail handoff, passengers, finals);
-- zkvm/device_outer.DeviceOuterRounds (kernels 4 and 1: the Gruen eq-weighted
-  round at the split-eq level offsets, then the fold);
+  deferred binds, grouped folds, evals, the host-tail handoff,
+  passengers, finals), whose tables hold the live prefix of the JAX
+  engine's zero-tailed tables;
+- zkvm/device_outer.DeviceOuterRounds (kernel 4: the fold of the last
+  challenge and the Gruen eq-weighted round at the split-eq level offsets
+  in one pass);
 - parallel/device_cols (the on-device Montgomery encodes, eq tables and
   challenge combos that feed them), as tests/test_device_cols.py checks the
   JAX one.
@@ -90,11 +93,21 @@ def test_product_tables_match_jax_engine(monkeypatch, k, degree, passengers,
         got = port.round_evals()
         assert got == ref.round_evals()
         assert got == FrVec.prod_evals_adj(host[:k], degree)
+        if port._host is None:
+            # the port holds the live prefix the JAX engine holds before
+            # its zero tail
+            full = _words(ref.tables)
+            assert torch.equal(port.tables, full[:, : port.live])
+            assert not full[:, port.live:].any()
         port.bind(r)
         ref.bind(r)
         host = [v.fold_adj(r) for v in host]
+        # the bind is deferred: r is pending, the tables not yet folded
+        assert port.live == ref.live
+        assert (port._pending is None) == (port._host is not None)
     assert port.live == ref.live == 1
     assert port.finals() == ref.finals() == [v.first() for v in host]
+    assert port._pending is None
 
 
 @pytest.mark.parametrize("k,degree", [(2, 2), (3, 3)])
@@ -136,6 +149,7 @@ def test_round_evals_many_matches_jax_engines(monkeypatch):
     for rnd, r in enumerate(_ints(17, n.bit_length() - 1)):
         futs = se.round_evals_many(port)
         assert [f is None for f in futs] == [rnd >= 2] * len(port)
+        assert all(e._pending is None for e in port)
         got = [e.round_evals() if v is None else v
                for e, v in zip(port, se.drain_futures(futs))]
         assert got == [e.round_evals() for e in ref]
@@ -194,6 +208,13 @@ def test_outer_rounds_match_jax_engine(monkeypatch, tail):
         got = port.round_evals()
         assert got == ref.round_evals()
         assert got == do._gruen_tail_evals(se_p, host_a, host_b, port.live)
+        if port._fr is None:
+            # the pass folded the previous r: the live prefix of the JAX
+            # engine's az/bz, whose tail is zero
+            full = torch.stack([_words(ref.az), _words(ref.bz)])
+            assert port._pending is None
+            assert torch.equal(port.tabs, full[:, : port.live])
+            assert not full[:, port.live:].any()
         port.bind(r)
         ref.bind(r)
         se_p.bind(r)
@@ -226,6 +247,49 @@ def test_gruen_matches_xla_eval_fixed():
         assert torch.equal(got, _words(ref))
         se_p.bind(r)
         live //= 2
+
+
+@pytest.mark.parametrize("mode", ["eval", "fused", "fold"])
+def test_gruen_round_plain_matches_xla_fold_and_eval(mode):
+    """Kernel 4's plain version in each mode against the XLA programs the
+    JAX engine runs, device_outer._fold_fixed, then _eval_fixed, at the
+    shapes the cases above compile (az/bz of 2^6 entries, the split eq of
+    6 variables), over every round of the split eq."""
+    from zolt_tpu.field import mxu
+
+    nv = 6
+    n = 1 << nv
+    se_p = GruenSplitEq(_ints(11, nv), 5)
+    e_out = do._flat_stack(se_p.E_out_vec, "cpu")
+    e_in = do._flat_stack(se_p.E_in_vec, "cpu")
+    jeq = [jnp.asarray(limb.to_jax_limbs(t)) for t in (e_out, e_in)]
+    ab = torch.stack([limb.encode(_ints(33 + j, n)) for j in (0, 1)])
+    ref = [jnp.asarray(limb.to_jax_limbs(ab[j])) for j in (0, 1)]
+    live = n
+    for rnd, r in enumerate(_ints(41, nv)):
+        if mode != "eval" and rnd:
+            # round rnd's pass folds by the previous challenge
+            rt = jnp.asarray(mxu.scalar_toeplitz(FR.mont(r)))
+            ref = list(jdo._fold_fixed(ref[0], ref[1], rt))
+            ab, ev = gruen.gruen_round(ab, r, e_out, e_in,
+                                       *do._gruen_level_args(se_p)[:3],
+                                       live // 2, eval=mode == "fused")
+            live //= 2
+            assert ab.shape == (2, live, 8)
+            full = torch.stack([_words(t) for t in ref])
+            assert torch.equal(ab, full[:, :live])
+        else:
+            live = n >> rnd          # eval only: the same tables, fewer pairs
+            ev = gruen.gruen_round(ab, None, e_out, e_in,
+                                   *do._gruen_level_args(se_p)[:3],
+                                   live // 2)[1]
+        if ev is not None:
+            off_out, off_in, h_in, _ = do._gruen_level_args(se_p)
+            want = jdo._eval_fixed(*ref, *jeq, jnp.uint32(off_out),
+                                   jnp.uint32(off_in), jnp.uint32(h_in),
+                                   jnp.uint32(live // 2))
+            assert torch.equal(ev, _words(want))
+        se_p.bind(r)
 
 
 # -- device_cols ---------------------------------------------------------------

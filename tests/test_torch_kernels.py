@@ -13,6 +13,8 @@ integer field arithmetic. The kernels themselves are held to these plain
 versions on the GPU by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -68,43 +70,43 @@ def interpret(monkeypatch):
 
 # -- kernel 1: fold ----------------------------------------------------------
 
-def test_fold_matches_pallas_fold_tail(interpret):
-    n, r = 64, 0xBEEF1234 % P
+def _pallas_fold(entry: str, tabs: torch.Tensor, r: int, live_pairs: int):
+    """zolt_tpu's fold entry point on the same words, as (k, n, 8) words."""
+    k, n = tabs.shape[0], tabs.shape[1]
     tp = jnp.asarray(pr.fold_toeplitz(FR.mont(r)).T.copy())
-    tab = _tables(11, 1, n, n)
-    ref = _jax(tab[0])
-    live = n
-    while live >= 8 * pr._SLOTS:
-        tab = fold.fold(tab, r, live // 2)
-        ref = pr.fold_tail(ref, tp, live // 2, JFR_C)
-        live //= 2
-        assert torch.equal(tab[0], limb.from_jax_limbs(np.asarray(ref)))
-        assert not tab[0, live:].any()
+    if entry == "fold_tail":
+        ref = [np.asarray(pr.fold_tail(_jax(tabs[j]), tp, live_pairs, JFR_C))
+               for j in range(k)]
+        return limb.from_jax_limbs(np.stack(ref))
+    if entry == "fold_tail_stack":
+        return limb.from_jax_limbs(np.asarray(
+            pr.fold_tail_stack(_jax(tabs), tp, live_pairs, JFR_C)))
+    # the packed-row engine fold: (k, n/8, 128) rows hold the same byte
+    # stream as (k, n, 16) limbs, so a reshape compares the two
+    rows = _jax(tabs).reshape(k, n // 8, 128)
+    ref = np.asarray(pr.fold_rows_stack(rows, tp, live_pairs, JFR_C))
+    return limb.from_jax_limbs(ref.reshape(k, n, 16))
 
 
-def test_fold_matches_pallas_fold_tail_stack(interpret):
-    n, r = 64, 424242
-    tp = jnp.asarray(pr.fold_toeplitz(FR.mont(r)).T.copy())
-    tabs = _tables(12, 3, n, n)
+@pytest.mark.parametrize("entry,k,seed,r", [
+    ("fold_tail", 1, 11, 0xBEEF1234 % P),
+    ("fold_tail_stack", 3, 12, 424242),
+    ("fold_rows_stack", 2, 15, 55555),
+])
+def test_fold_matches_pallas_fold(interpret, entry, k, seed, r):
+    """Kernel 1 against each Pallas fold that keeps the table's size: the
+    port's output is the new live prefix, the TPU's the same prefix with
+    a zero tail, round after round (the port folds its own output)."""
+    n = 64
+    tabs = _tables(seed, k, n, n)
+    full = tabs
     for live_pairs in (32, 16):
         got = fold.fold(tabs, r, live_pairs)
-        ref = pr.fold_tail_stack(_jax(tabs), tp, live_pairs, JFR_C)
-        assert torch.equal(got, limb.from_jax_limbs(np.asarray(ref)))
-        tabs = got
-
-
-def test_fold_matches_pallas_fold_rows_stack(interpret):
-    """The packed-row engine fold: (k, n/8, 128) rows hold the same byte
-    stream as (k, n, 16) limbs, so a reshape compares the two."""
-    n, r = 64, 55555
-    tp = jnp.asarray(pr.fold_toeplitz(FR.mont(r)).T.copy())
-    tabs = _tables(15, 2, n, n)
-    for live_pairs in (32, 16):
-        got = fold.fold(tabs, r, live_pairs)
-        rows = _jax(tabs).reshape(2, n // 8, 128)
-        ref = np.asarray(pr.fold_rows_stack(rows, tp, live_pairs, JFR_C))
-        assert torch.equal(got, limb.from_jax_limbs(ref.reshape(2, n, 16)))
-        tabs = got
+        ref = _pallas_fold(entry, full, r, live_pairs)
+        assert got.shape == (k, live_pairs, 8)
+        assert torch.equal(got, ref[:, :live_pairs])
+        assert not ref[:, live_pairs:].any()
+        tabs, full = got, ref
 
 
 def test_fold_matches_fold_shared_xla_form():
@@ -130,17 +132,40 @@ def test_fold_matches_frvec_fold_adj_down_to_one_pair():
         tabs = fold.fold(tabs, r, live // 2)
         host = [v.fold_adj(r) for v in host]
         live //= 2
+        assert tabs.shape == (2, live, 8)
         for j in range(2):
-            assert torch.equal(tabs[j, :live], limb.frvec_to_words(host[j]))
-        assert not tabs[:, live:].any()
+            assert torch.equal(tabs[j], limb.frvec_to_words(host[j]))
+
+
+def test_fold_many_plain_matches_frvec_per_table():
+    """Mixed groups, each with its own k, n, live prefix and challenge, in
+    one grouped call (one launch on a GPU), table by table against
+    FrVec.fold_adj."""
+    specs = [(3, 16, 8), (2, 64, 5), (1, 8, 0), (5, 32, 16), (2, 2, 1)]
+    groups = [(_tables(300 + i, k, n, n), 1000 + 77 * i, live)
+              for i, (k, n, live) in enumerate(specs)]
+    got = fold.fold_many(groups)
+    assert [g.shape for g in got] == [(k, live, 8) for k, _, live in specs]
+    for out, (tabs, r, live) in zip(got, groups):
+        for j in range(tabs.shape[0]):
+            host = limb.words_to_frvec(tabs[j, : 2 * live]).fold_adj(r)
+            want = limb.frvec_to_words(host) if live else out[j]
+            assert torch.equal(out[j], want)
+    assert [torch.equal(a, b) for a, b in
+            zip(got, fold.fold_many_plain(groups))] == [True] * len(specs)
 
 
 def test_fold_checks_its_inputs():
     tabs = _tables(14, 2, 8, 8)
     with pytest.raises(ValueError):
         fold.fold(tabs, 5, 5)                       # live past n/2
-    with pytest.raises(ValueError):
-        fold.fold(tabs[:, :7], 5, 2)                # odd n
+    odd = tabs[:, :7].contiguous()                  # an odd n
+    with pytest.raises(ValueError, match="out of range"):
+        fold.fold(odd, 5, 4)                        # 2·live past n
+    got = fold.fold(odd, 5, 3)                      # 2·live <= n: folds
+    for j in range(2):
+        host = limb.words_to_frvec(odd[j, :6]).fold_adj(5)
+        assert torch.equal(got[j], limb.frvec_to_words(host))
     with pytest.raises(ValueError):
         fold.fold(tabs.transpose(0, 1), 5, 1)       # not (k, n, 8) contiguous
     with pytest.raises(ValueError, match="no kernel"):
@@ -273,7 +298,8 @@ def test_wide_reduction_holds_at_its_word_bound():
 
 
 @pytest.mark.parametrize("name,value", [("r_mod_p", R % P),
-                                        ("r2_mod_p", R * R % P)])
+                                        ("r2_mod_p", R * R % P),
+                                        ("rinv_mod_p", pow(R, -1, P))])
 def test_field_ptx_constants(name, value):
     """field_ptx.cuh's R mod p and R^2 mod p words, read from the source."""
     import re
@@ -353,15 +379,162 @@ def test_gruen_checks_its_inputs():
     with pytest.raises(ValueError):
         gruen.gruen_eval(ab[0], ab[1][:8], e_out, e_in, off_out, off_in,
                          h_in, 4)
+    with pytest.raises(ValueError, match="neither"):
+        gruen.gruen_round(ab, None, e_out, e_in, off_out, off_in, h_in, 8,
+                          eval=False)
+    with pytest.raises(ValueError, match="out of range"):
+        gruen.gruen_round(ab, 5, e_out, e_in, off_out, off_in, h_in, 9)
+    with pytest.raises(ValueError, match="no kernel"):
+        gruen.gruen_round(ab.to("meta"), 5, None, None, 0, 0, 0, 8,
+                          eval=False)                 # no CPU fallback
+
+
+def _mont(a: int, b: int) -> int:
+    """CIOS a·b·R^{-1} for a first operand below 2^256 and b < p."""
+    assert 0 <= a < R and 0 <= b < P
+    t = a * b
+    t = (t + (t * P_INV_R % R) * P) // R
+    assert t < 2 * P
+    return t - P if t >= P else t
+
+
+def _gruen_kernel_model(ab, e_out, e_in, off_out: int, off_in: int,
+                        h_in: int, pairs: int, lanes: int, steps: int):
+    """What csrc/gruen_round.cu computes in an eval, on Python ints and
+    Montgomery residues: block b, slot s takes the pairs b·chunk + s +
+    PB·j. Each pair's two reduced products times its inner eq factor add
+    into a 544-bit sum; the outer factor weights a thread's sum (E_in,
+    0 < h_in and 2^h_in < chunk) or a block's (E_out when the block lies in
+    one row, else E_in with h_in = 0) once, into 832-bit sums that the
+    finishing block reduces by R^{-2} in four Montgomery products."""
+    a = limb.words_to_ints(ab[0, : 2 * pairs])
+    b = limb.words_to_ints(ab[1, : 2 * pairs])
+    eo, ei = limb.words_to_ints(e_out), limb.words_to_ints(e_in)
+    pb = 128 // lanes
+    chunk = pb * steps
+    mask = (1 << h_in) - 1
+    by_row = chunk <= mask + 1
+    per_thread = not by_row and h_in != 0
+    assert by_row or mask + 1 <= pb              # the kernel refuses the rest
+    total = [0, 0]
+    for blk in range(max(1, -(-pairs // chunk))):
+        block_sum = [0, 0]
+        for slot in range(pb):
+            acc = [0, 0]
+            for j in range(steps):
+                q = blk * chunk + slot + pb * j
+                if q >= pairs:
+                    continue
+                inner = (ei[off_in + (q & mask)] if by_row
+                         else eo[off_out + (q >> h_in)])
+                a0, a1, b0, b1 = a[2 * q], a[2 * q + 1], b[2 * q], b[2 * q + 1]
+                acc[0] += inner * _mont(a0, b0)
+                acc[1] += inner * _mont((a1 - a0) % P, (b1 - b0) % P)
+            assert max(acc) < 1 << 544
+            if per_thread:
+                outer = ei[off_in + (slot & mask)] if (slot & mask) < pairs \
+                    else 0
+                total = [t + x * outer for t, x in zip(total, acc)]
+            else:
+                block_sum = [t + x for t, x in zip(block_sum, acc)]
+        if not per_thread:
+            first = blk * chunk
+            outer = 0 if first >= pairs else (
+                eo[off_out + (first >> h_in)] if by_row else ei[off_in])
+            assert max(block_sum) < 1 << 544
+            total = [t + x * outer for t, x in zip(total, block_sum)]
+    consts = (pow(R, -1, P), 1, R % P, R * R % P)
+    out = []
+    for x in total:
+        assert x < 1 << (26 * 32)
+        out.append(sum(_mont((x >> (256 * c)) % R, consts[c])
+                       for c in range(4)) % P)
+    return out
+
+
+# (pairs, h_in, lanes, steps): each of the kernel's three ways to weight
+# by the eq factors, both schedules, several pairs a thread, a partial row
+GRUEN_SCHEDULES = [
+    (256, 8, 1, 2),      # E_out outer, the block's pairs in one row
+    (200, 7, 2, 2),      # the same, two threads a pair, a ragged end
+    (300, 0, 1, 1),      # h_in = 0: E_in's one entry outer, once a block
+    (130, 0, 2, 4),
+    (96, 3, 1, 1),       # E_in outer, once a thread
+    (512, 5, 2, 2),
+    (5, 6, 1, 1),        # fewer pairs than a row
+]
+
+
+@pytest.mark.parametrize("pairs,h_in,lanes,steps", GRUEN_SCHEDULES)
+def test_gruen_kernel_schedule_matches_plain(pairs, h_in, lanes, steps):
+    n_out = -(-pairs // (1 << h_in))
+    ab = _tables(400 + pairs, 2, 2 * pairs, 2 * pairs)
+    e_out = limb.encode(_ints(401 + pairs, 3 + n_out))
+    e_in = limb.encode(_ints(402 + pairs, 2 + (1 << h_in)))
+    args = (ab, e_out, e_in, 3, 2, h_in, pairs)
+    plain = gruen.gruen_eval_plain(ab[0], ab[1], *args[1:])
+    assert _gruen_kernel_model(*args, lanes, steps) == \
+        limb.words_to_ints(plain)
+
+
+def test_gruen_schedule_stays_in_the_kernels_regimes():
+    """Every (lanes, steps) the wrapper picks over the path's pair counts
+    and levels is one the kernel takes: a block inside one E_out row, or
+    2^h_in dividing a block step. The grid stays within 1024 blocks unless
+    a block already spans a whole row."""
+    for lg, h_in, folds in itertools.product(range(21), range(10),
+                                             (False, True)):
+        if h_in <= lg:
+            lanes, steps = gruen.schedule(1 << lg, h_in, folds)
+            chunk = 128 // lanes * steps
+            assert lanes == (2 if folds or 1 << lg <= gruen.SPLIT_MAX_PAIRS
+                             else 1)
+            assert chunk <= 1 << h_in or 1 << h_in <= 128 // lanes
+            assert -(-(1 << lg) // chunk) <= 1024 or chunk == 1 << h_in
+
+
+@pytest.mark.parametrize("mode", ["eval", "fused", "fold"])
+def test_gruen_round_plain_modes_match_fold_then_eval(mode):
+    """gruen_round on CPU tensors is fold_plain, then gruen_eval_plain, in
+    each mode, against FrVec.fold_adj and FrVec.gruen_quad."""
+    n, live = 64, 32
+    ab, e_out, e_in, off_out, off_in, h_in, lvl_out = _gruen_case(
+        95, n, live // 2)
+    r = None if mode == "eval" else 0xABCDEF
+    pairs = live // 2 if mode == "fused" else live
+    if mode == "eval":
+        ab, e_out, e_in, off_out, off_in, h_in, lvl_out = _gruen_case(
+            95, n, live)
+    tabs, ev = gruen.gruen_round(ab, r, e_out, e_in, off_out, off_in, h_in,
+                                 live, eval=mode != "fold")
+    host = [limb.words_to_frvec(ab[j, : 2 * live]) for j in (0, 1)]
+    if r is not None:
+        host = [v.fold_adj(r) for v in host]
+        assert tabs.shape == (2, live, 8)
+        for j in (0, 1):
+            assert torch.equal(tabs[j], limb.frvec_to_words(host[j]))
+    else:
+        assert tabs is ab
+    if mode == "fold":
+        assert ev is None
+        return
+    want = FrVec.gruen_quad(
+        limb.words_to_frvec(e_out[off_out: off_out + (1 << lvl_out)]),
+        limb.words_to_frvec(e_in[off_in: off_in + (1 << h_in)]), h_in,
+        host[0], host[1], pairs)
+    assert tuple(limb.decode(ev)) == tuple(want)
 
 
 def test_cpu_calls_launch_no_kernel():
-    counts = (fold.fold.launches, dict(evals.product_evals.counts),
-              gruen.gruen_eval.launches)
+    counts = (dict(fold.fold_many.counts), dict(evals.product_evals.counts),
+              dict(gruen.gruen_round.counts))
     tabs = _tables(91, 3, 8, 8)
     fold.fold(tabs, 3, 4)
+    fold.fold_many([(tabs, 3, 4), (tabs[:1].contiguous(), 5, 2)])
     evals.product_evals([(tabs[:2].contiguous(), 4, 2), (tabs, 4, 3)])
     ab, e_out, e_in, off_out, off_in, h_in, _ = _gruen_case(92, 16, 8)
     gruen.gruen_eval(ab[0], ab[1], e_out, e_in, off_out, off_in, h_in, 8)
-    assert counts == (fold.fold.launches, evals.product_evals.counts,
-                      gruen.gruen_eval.launches)
+    gruen.gruen_round(ab, 7, e_out, e_in, 0, 0, 0, 8)
+    gruen.gruen_round(ab, 7, None, None, 0, 0, 0, 8, eval=False)
+    assert counts == (fold.fold_many.counts, evals.product_evals.counts,
+                      gruen.gruen_round.counts)

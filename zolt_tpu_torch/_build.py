@@ -24,7 +24,7 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_eval.cu")
+KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_round.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -105,13 +105,13 @@ def kernels() -> KernelLib:
         with open(log_path) as f:
             ptxas_log = f.read()
     lib = ctypes.CDLL(so)
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.zfr_fold.argtypes = [P, P, P, I, L, L, P]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.zfr_fold.argtypes = [P, I, P]
     lib.zfr_fold.restype = I
     lib.zfr_product_evals.argtypes = [P, I, P, P]
     lib.zfr_product_evals.restype = I
-    lib.zfr_gruen_eval.argtypes = [P, P, P, P, L, L, I, L, P, I, P, P]
-    lib.zfr_gruen_eval.restype = I
+    lib.zfr_gruen_round.argtypes = [P, P]
+    lib.zfr_gruen_round.restype = I
     _KERNELS = KernelLib(lib, so, build_s, ptxas_log)
     return _KERNELS
 

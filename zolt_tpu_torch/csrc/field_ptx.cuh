@@ -12,7 +12,11 @@
 //   mac_wide(acc, a, b) acc += a*b as an unreduced 544-bit integer;
 //   wide_term(acc, j)  the three Montgomery products whose sum mod p is
 //                      acc*R^{-1}: one reduction for a whole sum of
-//                      products.
+//                      products;
+//   mul_wide(x, acc, b) x = acc*b, a 544-bit sum times an element, kept
+//                      as an 832-bit integer;
+//   xwide_term(x, j)   the four Montgomery products whose sum mod p is
+//                      x*R^{-2}.
 // Their inputs are canonical (< p < 2^254).
 #pragma once
 
@@ -26,6 +30,15 @@ __device__ __forceinline__ Fr r_mod_p() {
     r.w[0] = 0x4ffffffbu; r.w[1] = 0xac96341cu; r.w[2] = 0x9f60cd29u;
     r.w[3] = 0x36fc7695u; r.w[4] = 0x7879462eu; r.w[5] = 0x666ea36fu;
     r.w[6] = 0x9a07df2fu; r.w[7] = 0x0e0a77c1u;
+    return r;
+}
+
+// R^{-1} mod p: mont_mul(x, R^{-1} mod p) is x*R^{-2} mod p.
+__device__ __forceinline__ Fr rinv_mod_p() {
+    Fr r;
+    r.w[0] = 0x6db1194eu; r.w[1] = 0xdc5ba005u; r.w[2] = 0xe111ec87u;
+    r.w[3] = 0x090ef5a9u; r.w[4] = 0xaeb85d5du; r.w[5] = 0xc8260de4u;
+    r.w[6] = 0x82c5551cu; r.w[7] = 0x15ebf951u;
     return r;
 }
 
@@ -123,6 +136,14 @@ __device__ __forceinline__ Fr add_p(const Fr& a, const Fr& b) {
     Fr r;
 #pragma unroll
     for (int i = 0; i < 8; ++i) r.w[i] = keep == 0xffffffffu ? s[i] : d[i];
+    return r;
+}
+
+// c ? a : b, word by word, without a branch.
+__device__ __forceinline__ Fr pick(bool c, const Fr& a, const Fr& b) {
+    Fr r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.w[i] = c ? a.w[i] : b.w[i];
     return r;
 }
 
@@ -270,6 +291,48 @@ __device__ __forceinline__ Fr wide_term(const uint32_t (&acc)[WIDE], int j) {
         const uint32_t hi = i == 0 ? acc[16] : 0u;
         a.w[i] = j == 0 ? acc[i] : j == 1 ? acc[8 + i] : hi;
         b.w[i] = j == 0 ? (i == 0 ? 1u : 0u) : j == 1 ? r1.w[i] : r2.w[i];
+    }
+    return mont_mul(a, b);
+}
+
+// Words of a 544-bit sum times an element: below 2^(544+256) = 2^800, and
+// a sum of such products over fewer than 2^32 pairs stays below 2^832.
+constexpr int XWIDE = 26;
+
+// x += a[I..]*b row by row; row I's partial product ends below word I+9.
+template <int I>
+__device__ __forceinline__ void wide_rows(uint32_t (&x)[XWIDE],
+                                          const uint32_t (&a)[WIDE],
+                                          const uint32_t (&b)[8]) {
+    if constexpr (I < WIDE) {
+        mad_lo_row<I>(x, a[I], b);
+        mad_hi_row<I>(x, a[I], b);
+        wide_rows<I + 1>(x, a, b);
+    }
+}
+
+// x = a*b for a 17-word a (x[25] stays 0).
+__device__ __forceinline__ void mul_wide(uint32_t (&x)[XWIDE],
+                                         const uint32_t (&a)[WIDE],
+                                         const Fr& b) {
+#pragma unroll
+    for (int i = 0; i < XWIDE; ++i) x[i] = 0u;
+    wide_rows<0>(x, a, b.w);
+}
+
+// x*R^{-2} mod p for any 26-word x: with x = x0 + x1*2^256 + x2*2^512 +
+// x3*2^768, the sum mod p of four Montgomery products, xwide_term(x, 0..3):
+// x0 by R^{-1} mod p, x1 by 1, x2 by R mod p and x3 by R^2 mod p. Picked
+// without a branch, as in wide_term.
+__device__ __forceinline__ Fr xwide_term(const uint32_t (&x)[XWIDE], int j) {
+    const Fr ri = rinv_mod_p(), r1 = r_mod_p(), r2 = r2_mod_p();
+    Fr a, b;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const uint32_t top = i < XWIDE - 24 ? x[24 + (i < 2 ? i : 0)] : 0u;
+        a.w[i] = j == 0 ? x[i] : j == 1 ? x[8 + i] : j == 2 ? x[16 + i] : top;
+        b.w[i] = j == 0 ? ri.w[i] : j == 1 ? (i == 0 ? 1u : 0u)
+                 : j == 2 ? r1.w[i] : r2.w[i];
     }
     return mont_mul(a, b);
 }

@@ -32,14 +32,12 @@
 // One kernel holds both (164 registers, no spills, 3 blocks of 128 an SM).
 //
 // Single pass, one reduction a point. A block adds its threads' integers
-// column by column in shared memory. A group of one block finishes there;
-// in a larger group each block adds its 64-bit column sums into the
-// group's sums in device memory (integer atomics) and takes a ticket from
-// the group's counter, and the last block takes the sums and leaves the
-// sums and the counter at zero for the next launch. The finishing block
-// reduces each point's sum once (field_ptx.cuh wide_term, its three
-// Montgomery products on three threads) and writes the evals. Integer sums
-// do not depend on the order of the blocks.
+// column by column in shared memory; the blocks of a group then meet in
+// one integer sum by atomics and a ticket (ticket.cuh, shared with
+// gruen_round.cu). The finishing block reduces each point's sum once
+// (field_ptx.cuh wide_term, its three Montgomery products on three
+// threads) and writes the evals. Integer sums do not depend on the order
+// of the blocks.
 //
 // Fewer products:
 // - K = 2: Σ (a0 + tΔa)(b0 + tΔb) is quadratic in t, so only t = 0, 1, 2
@@ -66,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "field_ptx.cuh"
+#include "ticket.cuh"
 
 namespace {
 
@@ -163,19 +162,12 @@ __device__ __forceinline__ void pair_sums(const Group& g, int block,
 constexpr int LANES = 4;                     // the split: threads a pair
 constexpr int SPLIT_PAIRS = THREADS / LANES; // pairs a split block takes
 
-__device__ __forceinline__ zfr::Fr pick(bool c, const zfr::Fr& a,
-                                        const zfr::Fr& b) {
-    zfr::Fr r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r.w[i] = c ? a.w[i] : b.w[i];
-    return r;
-}
-
 // lo + t·(hi − lo) for t = 0, 1, 2, given d = hi − lo.
 __device__ __forceinline__ zfr::Fr at_point(int t, const zfr::Fr& lo,
                                             const zfr::Fr& hi,
                                             const zfr::Fr& d) {
-    return zfr::add_p(pick(t == 0, lo, hi), pick(t == 2, d, zfr::zero()));
+    return zfr::add_p(zfr::pick(t == 0, lo, hi),
+                      zfr::pick(t == 2, d, zfr::zero()));
 }
 
 // The split: this thread's unreduced sum of point t = lane % 4 over its
@@ -242,26 +234,12 @@ __device__ __forceinline__ void point_sums(const Group& g, int block,
         cols[lane * WIDE + w][threadIdx.x / LANES] = acc[w];
 }
 
-// Carry-normalizes the 64-bit column sums of point t into WIDE words. The
-// sums of a group are below live_pairs·p^2 < 2^540, so nothing carries out.
-__device__ __forceinline__ void normalize(const unsigned long long* s64,
-                                          int t, uint32_t (&w)[zfr::WIDE]) {
-    unsigned long long carry = 0;
-#pragma unroll
-    for (int i = 0; i < zfr::WIDE; ++i) {
-        const unsigned long long v = s64[t * zfr::WIDE + i] + carry;
-        w[i] = (uint32_t)v;
-        carry = v >> 32;
-    }
-}
-
 __global__ void __launch_bounds__(THREADS)
 product_evals_kernel(const __grid_constant__ Batch batch) {
     using namespace zfr;
     __shared__ uint32_t cols[COLS][ROW];
     __shared__ unsigned long long s64[COLS];
     __shared__ Fr terms[MAX_DEG1][3];
-    __shared__ bool last;
     int gi = 0;
     while (gi + 1 < batch.ngroups && (int)blockIdx.x >= batch.g[gi + 1].block0)
         ++gi;
@@ -279,38 +257,22 @@ product_evals_kernel(const __grid_constant__ Batch batch) {
     }
     __syncthreads();
     // thread c adds row c over the block's pairs (< 2^39); a group of more
-    // than one block adds that into the group's column sum (< 2^49 for 1024
-    // blocks) by integer atomics, so the order of the blocks does not matter
-    unsigned long long* slot = batch.scratch + gi * SLOT;
-    const bool alone = g.nblocks == 1;
+    // than one block adds that into the group's column sums (< 2^49 for
+    // 1024 blocks), ticket.cuh
     if (tid < ncols) {
         const int width = THREADS / g.lanes;
         unsigned long long s = 0;
 #pragma unroll 8
         for (int i = 0; i < width; ++i) s += cols[tid][i];
-        if (alone) {
-            s64[tid] = s;
-        } else {
-            atomicAdd(slot + tid, s);
-            __threadfence();
-        }
-    }
-    if (!alone) {
-        __syncthreads();
-        if (tid == 0)
-            last = atomicAdd(slot + COLS, 1ull) ==
-                   (unsigned long long)g.nblocks - 1;
-        __syncthreads();
-        if (!last) return;
-        // the group's last block takes the sums, leaving zeros
-        __threadfence();
-        if (tid < ncols) s64[tid] = atomicExch(slot + tid, 0ull);
+        s64[tid] = s;
     }
     __syncthreads();
+    if (!block_total(s64, ncols, batch.scratch + gi * SLOT, COLS, g.nblocks))
+        return;
     // one reduction a point, its three Montgomery products on three threads
     if (tid < 3 * np) {
         uint32_t w[WIDE];
-        normalize(s64, tid / 3, w);
+        normalize(s64 + tid / 3 * WIDE, w);
         terms[tid / 3][tid % 3] = wide_term(w, tid % 3);
     }
     __syncthreads();
@@ -328,7 +290,6 @@ product_evals_kernel(const __grid_constant__ Batch batch) {
 #pragma unroll
         for (int t = 0; t < MAX_DEG1; ++t)
             if (t <= g.degree) store(g.out, t, out[t]);
-        slot[COLS] = 0ull;
     }
 }
 

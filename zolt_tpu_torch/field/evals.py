@@ -10,7 +10,8 @@ groups (tabs, live_pairs, degree), k = 2 or 3 each, and evaluates them all
 in one launch: on CUDA tensors it launches the kernel or raises, on CPU
 tensors it runs `product_evals_plain` group by group. Its counters, plain
 integers in `product_evals.counts`: "launches", "launches_k2"/"launches_k3"
-(launches that carried a group of that k) and "groups_k2"/"groups_k3".
+(launches that carried a group of that k), "groups_k2"/"groups_k3", and
+the "bytes" and "imads" the launched groups need (`work`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,21 @@ def _check(tabs: torch.Tensor, live_pairs: int, degree: int) -> None:
         raise ValueError(f"live_pairs {live_pairs} out of range for n = {n}")
     if not 0 <= degree <= MAX_DEGREE:
         raise ValueError(f"degree {degree} > {MAX_DEGREE}")
+
+
+def work(groups) -> tuple[int, int]:
+    """Bytes and IMADs the product evals need for these groups (tabs,
+    live_pairs, degree): each live pair's K entries of 64 bytes read once,
+    the evals written once; K = 2 sums min(degree, 2) + 1 products a pair,
+    K = 3 forms that many reduced products and sums degree + 1."""
+    nbytes = imads = 0
+    for tabs, live, deg in groups:
+        k = tabs.shape[0]
+        nbytes += k * live * 64 + (deg + 1) * 32
+        pts = min(deg, 2) + 1
+        imads += live * (pts * limb.WIDE_IMADS if k == 2 else
+                         pts * limb.MONT_IMADS + (deg + 1) * limb.WIDE_IMADS)
+    return nbytes, imads
 
 
 def product_evals_plain(tabs: torch.Tensor, live_pairs: int,
@@ -143,8 +159,12 @@ def product_evals(groups) -> list[torch.Tensor]:
         for k in (2, 3):
             c[f"groups_k{k}"] += ks.count(k)
             c[f"launches_k{k}"] += k in ks
+        nbytes, imads = work(chunk)
+        c["bytes"] += nbytes
+        c["imads"] += imads
     return outs
 
 
 product_evals.counts = dict.fromkeys(
-    ("launches", "launches_k2", "launches_k3", "groups_k2", "groups_k3"), 0)
+    ("launches", "launches_k2", "launches_k3", "groups_k2", "groups_k3",
+     "bytes", "imads"), 0)

@@ -1,13 +1,15 @@
-"""Kernel 1: the challenge fold of a stack of fixed-size tables.
+"""Kernel 1: the challenge fold of the live prefix of table stacks.
 
     out[j][i] = t[j][2i] + r·(t[j][2i+1] − t[j][2i])   i < live_pairs
-    out[j][i] = 0                                       live_pairs <= i < n
 
-`fold` is the wrapper: on a CUDA tensor it launches csrc/fold.cu (which
-replaces zolt_tpu/field/pallas_redc.py fold_tail, fold_tail_stack,
-fold_rows_stack and fold_shared) or raises; on a CPU tensor it runs
-`fold_plain`, the torch version of the same function. `fold.launches`
-counts kernel launches.
+The output holds the new live prefix only, (k, live_pairs, 8). `fold_many`
+is the wrapper: it folds several stacks ("groups"), each by its own r, in
+one launch of csrc/fold.cu (which replaces zolt_tpu/field/pallas_redc.py
+fold_tail, fold_tail_stack, fold_rows_stack and fold_shared) on CUDA
+tensors, or raises; on CPU tensors it runs `fold_many_plain`, the torch
+version of the same function. `fold` is one group. The counters, plain
+integers in `fold_many.counts`: "launches", "groups", and the "bytes" and
+"imads" the launched groups need (`work`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,16 @@ from .. import _build
 from . import limb
 from .params import FR
 
+MAX_GROUPS = 16                 # csrc/fold.cu MAX_GROUPS
+
+
+class _Group(ctypes.Structure):
+    """csrc/fold.cu ZfrFoldGroup."""
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("src_n", ctypes.c_longlong),
+                ("live_pairs", ctypes.c_longlong),
+                ("r", ctypes.c_uint32 * 8), ("k", ctypes.c_int)]
+
 
 def _check(tabs: torch.Tensor, live_pairs: int) -> None:
     if tabs.dtype != torch.int32 or tabs.dim() != 3 or tabs.shape[2] != 8:
@@ -27,45 +39,88 @@ def _check(tabs: torch.Tensor, live_pairs: int) -> None:
                          f"{tuple(tabs.shape)} {tabs.dtype}")
     if not tabs.is_contiguous():
         raise ValueError("fold takes contiguous tables")
-    n = tabs.shape[1]
-    if n % 2 or not 0 <= live_pairs <= n // 2:
-        raise ValueError(f"live_pairs {live_pairs} out of range for n = {n}")
+    if not 0 <= live_pairs <= tabs.shape[1] // 2:
+        raise ValueError(f"live_pairs {live_pairs} out of range for "
+                         f"n = {tabs.shape[1]}")
+
+
+def work(k: int, live_pairs: int) -> tuple[int, int]:
+    """Bytes and IMADs a fold of k tables needs: each live pair's two
+    entries read once and its new entry written once, one Montgomery
+    product a pair."""
+    return k * live_pairs * 96, k * live_pairs * limb.MONT_IMADS
 
 
 def fold_plain(tabs: torch.Tensor, r: int, live_pairs: int) -> torch.Tensor:
     """The torch version of kernel 1 (any device)."""
     k = tabs.shape[0]
-    out = torch.zeros_like(tabs)
-    if live_pairs:
-        pairs = tabs[:, : 2 * live_pairs].reshape(k, live_pairs, 2, 8)
-        lo, hi = pairs[:, :, 0], pairs[:, :, 1]
-        rw = limb.encode(r % FR.p, device=tabs.device)
-        out[:, :live_pairs] = limb.add(lo, limb.mont_mul(limb.sub(hi, lo), rw))
-    return out
+    pairs = tabs[:, : 2 * live_pairs].reshape(k, live_pairs, 2, 8)
+    lo, hi = pairs[:, :, 0], pairs[:, :, 1]
+    rw = limb.encode(r % FR.p, device=tabs.device)
+    return limb.add(lo, limb.mont_mul(limb.sub(hi, lo), rw))
+
+
+def fold_many_plain(groups) -> list[torch.Tensor]:
+    return [fold_plain(*g) for g in groups]
+
+
+def _launch(groups) -> list[torch.Tensor]:
+    dev = groups[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fold has no kernel for device {dev}")
+    total = sum(tabs.shape[0] * live for tabs, _, live in groups)
+    buf = torch.empty((total, 8), dtype=torch.int32, device=dev)
+    descs = (_Group * len(groups))()
+    outs, row = [], 0
+    for desc, (tabs, r, live) in zip(descs, groups):
+        if tabs.device != dev:
+            raise ValueError(f"fold groups on {tabs.device} and {dev}")
+        if tabs.data_ptr() % 16:
+            raise ValueError("fold needs 16-byte aligned tables")
+        k = tabs.shape[0]
+        out = buf[row: row + k * live].view(k, live, 8)
+        m = FR.mont(r % FR.p)
+        desc.src, desc.dst = tabs.data_ptr(), out.data_ptr()
+        desc.src_n, desc.live_pairs, desc.k = tabs.shape[1], live, k
+        desc.r[:] = [(m >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+        outs.append(out)
+        row += k * live
+    if total:
+        with torch.cuda.device(dev):
+            rc = _build.kernels().lib.zfr_fold(
+                ctypes.addressof(descs), len(groups),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, f"fold ({len(groups)} groups)")
+        c = fold_many.counts
+        c["launches"] += 1
+        for tabs, _, live in groups:
+            if live:
+                nbytes, imads = work(tabs.shape[0], live)
+                c["groups"] += 1
+                c["bytes"] += nbytes
+                c["imads"] += imads
+    return outs
+
+
+def fold_many(groups) -> list[torch.Tensor]:
+    """Fold each group (tabs (k, n, 8), r, live_pairs) by its challenge r (a
+    canonical int) into a new (k, live_pairs, 8) tensor (the fold is out of
+    place); up to MAX_GROUPS groups a launch, groups with no live pair
+    take none."""
+    groups = [(tabs, int(r), int(live)) for tabs, r, live in groups]
+    for tabs, _, live in groups:
+        _check(tabs, live)
+    if all(tabs.device.type == "cpu" for tabs, _, _ in groups):
+        return fold_many_plain(groups)
+    outs = []
+    for i in range(0, len(groups), MAX_GROUPS):
+        outs += _launch(groups[i: i + MAX_GROUPS])
+    return outs
+
+
+fold_many.counts = dict.fromkeys(("launches", "groups", "bytes", "imads"), 0)
 
 
 def fold(tabs: torch.Tensor, r: int, live_pairs: int) -> torch.Tensor:
-    """Fold every table of `tabs` (k, n, 8) by the challenge r (a canonical
-    int); returns a new (k, n, 8) tensor (the fold is out of place)."""
-    _check(tabs, live_pairs)
-    if tabs.device.type == "cpu":
-        return fold_plain(tabs, r, live_pairs)
-    if tabs.device.type != "cuda":
-        raise ValueError(f"fold has no kernel for device {tabs.device}")
-    if tabs.data_ptr() % 16:
-        raise ValueError("fold needs 16-byte aligned tables")
-    k, n = tabs.shape[0], tabs.shape[1]
-    out = torch.empty_like(tabs)
-    m = FR.mont(r % FR.p)
-    rw = (ctypes.c_uint32 * 8)(*[(m >> (32 * i)) & 0xFFFFFFFF
-                                 for i in range(8)])
-    with torch.cuda.device(tabs.device):
-        rc = _build.kernels().lib.zfr_fold(
-            tabs.data_ptr(), out.data_ptr(), ctypes.cast(rw, ctypes.c_void_p),
-            k, n, live_pairs, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "fold")
-    fold.launches += 1
-    return out
-
-
-fold.launches = 0
+    """One group of fold_many."""
+    return fold_many([(tabs, r, live_pairs)])[0]

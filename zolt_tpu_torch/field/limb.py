@@ -43,6 +43,13 @@ def _mk_const(fp: FieldParams) -> FieldConst:
 FR_C = _mk_const(FR)
 FP_C = _mk_const(FP)
 
+# The CUDA kernels' work, counted as the H100's 32-bit multiply-adds
+# (IMADs; a 32x32-bit word product is two, its lo and hi halves): a 256 x
+# 256-bit product kept wide, and a Montgomery product with its REDC. The
+# wrappers add up the work of their launches by these counts.
+WIDE_IMADS = 128
+MONT_IMADS = 272
+
 
 def _p16(f: FieldConst, device) -> torch.Tensor:
     return torch.tensor(f.p16, dtype=torch.int64, device=device)

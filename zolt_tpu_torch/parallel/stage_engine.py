@@ -8,14 +8,18 @@ Gruen instances factor their eq weight separately — see zkvm/device_outer):
     evals[t] = Σ_i Π_k (lo_k[i] + t·(hi_k[i] − lo_k[i]))   t = 0..degree
     fold:      tab_k[i] ← lo_k[i] + r·(hi_k[i] − lo_k[i])
 
-The port of zolt_tpu/parallel/stage_engine.py for one device. Tables keep
-their initial power-of-two size as one (k, n, 8) int32 stack of Montgomery
-words; the live prefix halves per round behind a zero tail (zero factors
-kill tail products, so sums are exact). Evals go through kernels 2-3
-(field/evals.py), all of a round's instances in one launch
-(round_evals_many), folds through kernel 1 (field/fold.py). Once the live
-prefix is at most `tail_n()` entries the remaining rounds move to the host
-FrVec tier.
+The port of zolt_tpu/parallel/stage_engine.py for one device. An engine's
+tables are one (k, live, 8) int32 stack of Montgomery words holding the
+live prefix only: each fold writes a new stack of half the length (the
+JAX engine's fixed size behind a zero tail is XLA's static shapes). Binds
+are deferred: bind(r) launches nothing and records r; the pending fold
+runs when the engine's evals are next asked for, all of a round's engines
+in one grouped launch of kernel 1 (field/fold.py), followed by one
+grouped launch of kernels 2-3 (field/evals.py) for their evals
+(round_evals_many). Whatever reads the tables (finals, the host handoff)
+flushes a pending fold first; flush_many flushes several engines in one
+launch. Once the live prefix is at most `tail_n()` entries the remaining
+rounds move to the host FrVec tier.
 
 "Passenger" tables ride along in the fold (no eval contribution) so that
 instances can expose final openings of constituent polynomials (e.g. the
@@ -34,7 +38,11 @@ import torch
 
 from ..field import limb
 from ..field.evals import product_evals
-from ..field.fold import fold
+from ..field.fold import fold_many
+from ..field.params import FR
+
+
+P = FR.p
 
 
 def tail_n() -> int:
@@ -68,12 +76,25 @@ def drain_futures(futures: list) -> list:
     return out
 
 
+def flush_many(engines) -> None:
+    """Run the pending folds of these DeviceProductTables (None entries
+    skipped) in one grouped launch of kernel 1."""
+    pend = [e for e in engines if e is not None and e._pending is not None]
+    if not pend:
+        return
+    outs = fold_many([(e.tables, e._pending, e.live) for e in pend])
+    for e, tabs in zip(pend, outs):
+        e.tables, e._pending = tabs, None
+
+
 def round_evals_many(engines) -> list:
     """The (degree+1, 8) device evals of several DeviceProductTables'
-    current round, from one grouped launch of kernels 2-3 (no host sync).
+    current round: their pending folds in one grouped launch of kernel 1,
+    then their evals in one grouped launch of kernels 2-3 (no host sync).
     A None entry, or an engine whose narrow tail has moved to the host,
     gets None: callers take its round_evals. Download the futures with
     drain_futures."""
+    flush_many(engines)
     on_dev = []
     for e in engines:
         if e is None:
@@ -114,7 +135,8 @@ class DeviceProductTables:
     """k product tables + passengers on one device; see module doc.
 
     n_factors tables contribute to the evals; the rest only fold. The live
-    prefix is tracked host-side."""
+    prefix is tracked host-side: `live` counts the entries after every
+    bind, a pending one included."""
 
     def __init__(self, factor_vecs, passenger_vecs=(), degree=None,
                  device=None):
@@ -132,6 +154,7 @@ class DeviceProductTables:
         # torch.stack copies: the engine never aliases an FrVec buffer
         self.tables = torch.stack([as_words(v, self.device)
                                    for v in all_vecs])
+        self._pending: int | None = None     # a bound r not yet folded
         self._host: list | None = None
 
     # -- host tail ----------------------------------------------------------
@@ -143,7 +166,8 @@ class DeviceProductTables:
         (only the live prefix crosses to the host)."""
         if self._host is not None:
             return
-        arr = self.tables[:, : self.live].to("cpu")
+        flush_many([self])
+        arr = self.tables.to("cpu")               # the live prefix
         self._host = [limb.words_to_frvec(arr[j]) for j in range(arr.shape[0])]
         self.tables = None
 
@@ -168,19 +192,23 @@ class DeviceProductTables:
         return drain_futures([dev])[0]
 
     def bind(self, r: int) -> None:
+        """Fold every table by r: on the device, deferred to the next
+        evals or read (one pending fold at most; a second bind flushes
+        the first)."""
         if self._needs_tail():
             self._to_host()
-        if self._host is not None:
-            if self.live // 2 == 0:
-                return
-            self._host = [v.fold_adj(r) for v in self._host]
-            self.live //= 2
+        if self.live // 2 == 0:
             return
-        self.tables = fold(self.tables, r, self.live // 2)
+        if self._host is not None:
+            self._host = [v.fold_adj(r) for v in self._host]
+        else:
+            flush_many([self])
+            self._pending = r % P
         self.live //= 2
 
     def finals(self) -> list[int]:
         """First element of every table (factors then passengers)."""
         if self._host is not None:
             return [v.first() for v in self._host]
+        flush_many([self])
         return limb.decode(self.tables[:, 0])

@@ -12,13 +12,15 @@ the az/bz fold:
 matching the reference's hot-loop structure
 (src/zkvm/spartan/streaming_outer.zig:1577-1679, fold :1681-1722).
 
-The port of zolt_tpu/zkvm/device_outer.py DeviceOuterRounds. az/bz stay at
-their initial power-of-two size as one (2, n, 8) word stack, the live prefix
-halving per round behind a zero tail; the Gruen eq prefix-table stacks go to
-the device once per prover as flat buffers and each round passes only level
-offsets. The eval is kernel 4 (field/gruen.py), the fold kernel 1
-(field/fold.py). Eval and fold are separate launches: the challenge exists
-only after the evals are absorbed. Rounds whose live prefix is at most
+The port of zolt_tpu/zkvm/device_outer.py DeviceOuterRounds. az/bz are
+one (2, live, 8) word stack holding the live prefix only; the Gruen eq
+prefix-table stacks go to the device once per prover as flat buffers and
+each round passes only level offsets. Kernel 4 (field/gruen.py) runs one
+pass a round: the challenge exists only after a round's evals are
+absorbed, so bind(r) launches nothing and records r, and the next round's
+pass folds by it and evaluates the folded tables (the first round only
+evaluates). Reading the tables (final_values, the host handoff) flushes a
+pending fold by a fold-only pass. Rounds whose live prefix is at most
 `tail_n()` finish on the host FrVec tier. The mesh backend
 (MeshOuterRounds) is not ported yet (ROADMAP Queue 1 item 13).
 """
@@ -28,8 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..field import limb
-from ..field.fold import fold
-from ..field.gruen import gruen_eval
+from ..field.gruen import gruen_round
 from ..field.params import FR
 from ..parallel.stage_engine import as_words, resolve_device, tail_n
 
@@ -86,11 +87,12 @@ class DeviceOuterRounds:
 
     def __init__(self, az, bz, se=None, device=None):
         n = az.n if hasattr(az, "n") else len(az)
-        self.n = n                       # fixed device size
-        self.live = n                    # live prefix length (halves per round)
+        self.n = n                       # initial size
+        self.live = n                    # live prefix after every bind
         self.device = resolve_device(device)
         self.tabs = torch.stack([as_words(az, self.device),
                                  as_words(bz, self.device)])
+        self._pending = None             # a bound r not yet folded
         self.se = None
         self._fr = None                  # (az, bz) FrVecs once on the tail
         if se is not None:
@@ -104,10 +106,18 @@ class DeviceOuterRounds:
     def num_pairs(self) -> int:
         return self.live // 2
 
+    def _flush(self) -> None:
+        """Run a pending fold alone (a fold-only pass)."""
+        if self._pending is not None:
+            self.tabs, _ = gruen_round(self.tabs, self._pending, None, None,
+                                       0, 0, 0, self.live, eval=False)
+            self._pending = None
+
     def _maybe_tail(self) -> None:
         if self._fr is not None or self.live > tail_n():
             return
-        arr = self.tabs[:, : self.live].to("cpu")
+        self._flush()
+        arr = self.tabs.to("cpu")                 # the live prefix
         self._fr = (limb.words_to_frvec(arr[0]), limb.words_to_frvec(arr[1]))
         self.tabs = None
 
@@ -119,8 +129,13 @@ class DeviceOuterRounds:
         if self._fr is not None:
             return None
         off_out, off_in, h_in, _ = _gruen_level_args(self.se)
-        return gruen_eval(self.tabs[0], self.tabs[1], self.eq_out,
-                          self.eq_in, off_out, off_in, h_in, self.live // 2)
+        # with a pending r: fold the live pairs by it, then evaluate the
+        # folded tables' pairs in the same pass
+        r, self._pending = self._pending, None
+        self.tabs, evals = gruen_round(
+            self.tabs, r, self.eq_out, self.eq_in, off_out, off_in, h_in,
+            self.live if r is not None else self.live // 2)
+        return evals
 
     def round_evals(self) -> tuple[int, int]:
         dev = self.round_evals_device()
@@ -131,17 +146,22 @@ class DeviceOuterRounds:
         return t0, tinf
 
     def bind(self, r: int) -> None:
+        """Fold az/bz by r: on the device, deferred to the next round's
+        pass or read (one pending fold at most; a second bind flushes the
+        first)."""
         self._maybe_tail()
-        if self._fr is not None:
-            if self.live > 1:
-                self._fr = (self._fr[0].fold_adj(r), self._fr[1].fold_adj(r))
-                self.live //= 2
+        if self.live <= 1:
             return
-        self.tabs = fold(self.tabs, r, self.live // 2)
+        if self._fr is not None:
+            self._fr = (self._fr[0].fold_adj(r), self._fr[1].fold_adj(r))
+        else:
+            self._flush()
+            self._pending = r % P
         self.live //= 2
 
     def final_values(self) -> tuple[int, int]:
         if self._fr is not None:
             return self._fr[0].first(), self._fr[1].first()
+        self._flush()
         a, b = limb.decode(self.tabs[:, 0])
         return a, b

@@ -165,7 +165,8 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
     engines = None
     if backend == "device" and T >= 4:
         from ..parallel.stage_engine import (DeviceProductTables,
-                                             drain_futures, round_evals_many)
+                                             drain_futures, flush_many,
+                                             round_evals_many)
 
         if dev_store is not None:
             # Raw-upload tier (parallel/device_cols): every engine table is
@@ -307,6 +308,7 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
     res.final_claim = combined_claim
     res.instance_final_claims = [shift_claim, instr_claim, reg_claim]
     if engines is not None:
+        flush_many(engines)          # the last binds' folds, one launch
         fa = engines[0].finals()     # eqp1_outer, combo, upc..noop
         f_rr = engines[2].finals()   # eqw, r_rs2, rs2
         f_ri = engines[3].finals()   # eqw, r_imm, imm
