@@ -26,7 +26,10 @@ Phases, one status line each; the first failure ends the run non-zero:
    (h_in = 8 early, 0 late). Both schedules of the product evals (a thread
    a pair, four threads a pair) at each live count of the path's rounds,
    and of the Gruen round's eval-only pass (a thread a pair, two threads a
-   pair) on both sides of their crossover. Exact: every value is a
+   pair) on both sides of their crossover. The fold and the k = 2,
+   degree-2 product evals also at the sound batch opening's shapes: 16
+   groups of (2, 2^20) in one launch, and groups of 2^20 and 2^16 entries
+   mixed in one launch (about 1 GiB of inputs). Exact: every value is a
    canonical field element, so the tolerance is 0. Times each kernel per
    call (CUDA events) and on the device alone
    (torch.profiler), beside its bound (bytes at the HBM rate or IMADs at
@@ -46,6 +49,18 @@ Phases, one status line each; the first failure ends the run non-zero:
    computes for the same guest on the CPU. Every kernel must have
    launched during the tail-0 device prove. Each kernel's path bound is
    the bound of the bytes and IMADs its wrapper counted over that prove.
+5. sound: the same guest with sound=True (stages 1-12 and the PCS batch
+   opening): prove_jolt's defaults with the tail at 0, timed, with its
+   peak device memory, its per-stage seconds (stage5, stage6, stage7,
+   stages8_12, batch_opening beside the others) and the wrappers' launch
+   and group counts for the whole prove and for its batch opening alone;
+   then the host tier. The two proofs must be equal, and at T = 2^16 equal
+   the JAX package's sound digest. Every kernel must have launched in the
+   sound prove, and the fold and the k = 2 product evals in its batch
+   opening, at no more than 16 groups a launch. With --profile, one more
+   tail-0 sound prove under torch.profiler (device busy, and the batch
+   opening's device ms by its record_function range) and cProfile, written
+   to PROFILE_sound.txt.
 
 The last three lines are the kernels' JSON, the nvidia-smi card line and
 the result JSON.
@@ -54,6 +69,7 @@ the result JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -67,6 +83,10 @@ import time
 # the CPU with the JAX package; tests/test_torch_slice.py recomputes it).
 JAX_DIGEST_T16 = (
     "3f55108bedaa1c9c70df9394b406a84fc7093048e519041957bf9b38c916ed62")
+# The same for the sound prove, prove_jolt(..., sound=True)
+# (tests/test_torch_slice.py recomputes it too).
+JAX_SOUND_DIGEST_T16 = (
+    "643d621c3ef83736f83ce17bfb510b76579101b0d4cbc259ce2e54072682bcd8")
 
 # (name, source, the pallas_call sites it replaces).
 KERNELS = [
@@ -185,6 +205,69 @@ def check_kernels(torch, stats: dict) -> None:
     check_fold(torch, gen, stats)
     check_product_evals(torch, gen, stats)
     check_gruen(torch, gen, stats)
+    check_batch_opening_shapes(torch, gen, stats)
+
+
+# The sound prove's batch opening at T = 2^16: 39 claim groups of 2 x 2^20
+# entries (f and the merged eq table; five groups of 2^16 wake at round 4),
+# degree 2; its engines go 16 groups a launch.
+BO_LOG_N = 20
+
+
+def check_batch_opening_shapes(torch, gen, stats: dict) -> None:
+    """Kernels 1 and 5 at the batch opening's shapes, against fold_plain and
+    product_evals_plain (max_abs_err 0): one launch of 16 groups of (2,
+    2^20, 8), each its own r, with every pair live (its first round); and a
+    mixed launch of groups at 2^20 and 2^16 entries and live counts down to
+    one pair (its later rounds, and the groups that wake late). Times the
+    16-group launch of each."""
+    from zolt_tpu_torch.field import evals, fold
+
+    n = 1 << BO_LOG_N
+    r = 0x2A5C_1234_5678_9ABC_DEF0_1122_3344_5566
+    big = [rand_tables(torch, gen, 2, n, n) for _ in range(16)]
+    fg = [(t, r + 7919 * i, n // 2) for i, t in enumerate(big)]
+    eg = [(t, n // 2, 2) for t in big]
+    mixed = [(rand_tables(torch, gen, 2, m, 2 * live), live)
+             for m, live in ((n, n // 2), (1 << 16, 1 << 15), (n, 1 << 10),
+                             (1 << 16, 1 << 12), (n, 3), (1 << 16, 1))]
+    err = {"fold": 0, "evals": 0}
+    for groups in (fg, [(t, r + i, live) for i, (t, live) in enumerate(mixed)]):
+        before = fold.fold_many.counts["launches"]
+        got = fold.fold_many(groups)
+        if fold.fold_many.counts["launches"] != before + 1:
+            raise AssertionError("the batch opening's folds took more than "
+                                 "one launch for 16 groups")
+        for out, g in zip(got, groups):
+            err["fold"] = max(err["fold"],
+                              max_abs(torch, out, fold.fold_plain(*g)))
+    for groups in (eg, [(t, live, 2) for t, live in mixed]):
+        before = evals.product_evals.counts["launches"]
+        got = evals.product_evals(groups)
+        if evals.product_evals.counts["launches"] != before + 1:
+            raise AssertionError("the batch opening's product evals took "
+                                 "more than one launch for 16 groups")
+        for out, g in zip(got, groups):
+            err["evals"] = max(err["evals"], max_abs(
+                torch, out, evals.product_evals_plain(*g)))
+    if any(err.values()):
+        raise AssertionError(f"the batch opening's shapes differ from the "
+                             f"plain versions: {err}")
+    say("kernels", "fold and product_evals (k = 2, degree 2) exact (max_abs_err "
+                   "0) vs plain at the batch opening's shapes: 16 x (2, 2^20) "
+                   "in one launch, and 2^20 / 2^16 groups mixed")
+    w = [sum(x) for x in zip(*(fold.work(2, live) for _, _, live in fg))]
+    timings(torch, stats, "fold_batch_opening", lambda: fold.fold_many(fg),
+            lambda: fold.fold_many_plain(fg), *w,
+            "batch opening round 0: 16 groups of (2, 2^20, 8), 2^19 live "
+            "pairs, one launch", err["fold"])
+    timings(torch, stats, "product_evals_k2_batch_opening",
+            lambda: evals.product_evals(eg),
+            lambda: [evals.product_evals_plain(*g) for g in eg],
+            *evals.work(eg), "batch opening round 0: 16 groups of (2, 2^20, "
+            "8), degree 2, 2^19 live pairs, one launch", err["evals"])
+    del big, fg, eg, mixed
+    torch.cuda.empty_cache()
 
 
 # Stage 3's seven engines, tables each (factors and passengers), n = 2^16:
@@ -602,16 +685,22 @@ def reset_launches() -> None:
         c.update(dict.fromkeys(c, 0))
 
 
-def read_launches() -> tuple[dict, dict]:
-    """The wrappers' launch counts per kernel entry of the JSON line (a
-    grouped product-evals launch counts for each k it carried), and a copy
-    of every wrapper's counters (launches, bytes and IMADs)."""
-    c = {k: dict(v) for k, v in counters().items()}
+def entry_launches(c: dict) -> dict:
+    """Launch counts per kernel entry of the JSON line from a copy of the
+    wrappers' counters (a grouped product-evals launch counts for each k it
+    carried)."""
     pe = c["product_evals"]
     return {"fold": c["fold"]["launches"],
             "product_evals_k2": pe["launches_k2"],
             "product_evals_k3": pe["launches_k3"],
-            "gruen_round": c["gruen_round"]["launches"]}, c
+            "gruen_round": c["gruen_round"]["launches"]}
+
+
+def read_launches() -> tuple[dict, dict]:
+    """The wrappers' launch counts per kernel entry of the JSON line, and a
+    copy of every wrapper's counters (launches, groups, bytes and IMADs)."""
+    c = {k: dict(v) for k, v in counters().items()}
+    return entry_launches(c), c
 
 
 # kernel -> the name torch.profiler shows for it on the device
@@ -628,6 +717,218 @@ def device_kernel_counts(rows) -> tuple[dict, dict]:
     ms = {k: round(device_us([e for e in rows if v in e.key]) / 1e3, 4)
           for k, v in DEVICE_NAMES.items()}
     return counts, ms
+
+
+# The host-clock stages of the sound prove that the compat prove lacks.
+SOUND_STAGES = ("stage5", "stage6", "stage7", "stages8_12", "batch_opening")
+BO_RANGE = "zolt_batch_opening"
+
+
+@contextlib.contextmanager
+def batch_opening_counts(torch, ranged: bool = False):
+    """While open, zolt_tpu_torch.pcs.batch.prove_batch_opening (which the
+    pipeline looks up at call time) adds the wrappers' counter increments
+    of each of its calls into the dict this yields: the batch opening
+    alone. With `ranged` each call runs inside a torch.profiler
+    record_function range BO_RANGE that ends after a device sync."""
+    from torch.profiler import record_function
+
+    from zolt_tpu_torch.pcs import batch
+
+    orig = batch.prove_batch_opening
+    total = {k: dict.fromkeys(c, 0) for k, c in counters().items()}
+
+    def counted(*a, **kw):
+        before = {k: dict(c) for k, c in counters().items()}
+        with record_function(BO_RANGE) if ranged else contextlib.nullcontext():
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+        for k, c in counters().items():
+            for key, v in c.items():
+                total[k][key] += v - before[k][key]
+        return out
+
+    batch.prove_batch_opening = counted
+    try:
+        yield total
+    finally:
+        batch.prove_batch_opening = orig
+
+
+def device_event_ms(prof, span: str | None = None) -> dict | None:
+    """Device ms of a profile's device events (kernels and copies), by
+    kernel and in all ("all"); with `span`, only those that started inside
+    the host interval of the record_function range of that name (which
+    ends after a device sync). The profiler also puts the range itself on
+    the device's timeline: it is not work, and is left out. None when
+    there are no such events."""
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    dev = [e for e in evs
+           if e.device_type == DeviceType.CUDA and e.name != BO_RANGE]
+    if span is not None:
+        spans = [(e.time_range.start, e.time_range.end) for e in evs
+                 if e.name == span]
+        dev = [e for e in dev
+               if any(a <= e.time_range.start <= b for a, b in spans)]
+    if not dev:
+        return None
+    out = {k: round(sum(e.time_range.elapsed_us() for e in dev
+                        if v in e.name) / 1e3, 4)
+           for k, v in DEVICE_NAMES.items()}
+    out["all"] = round(sum(e.time_range.elapsed_us() for e in dev) / 1e3, 4)
+    return out
+
+
+def path_figures(work: dict, dev_ms: dict | None, phase: str,
+                 what: str) -> dict:
+    """Per kernel entry of the JSON line: launches, groups, bytes, IMADs
+    and the bound of that work (the wrappers' counters over a run), beside
+    the device ms the profiler saw (None: not measured, or no launch). One
+    grouped launch can carry k = 2 and k = 3 groups, so the product evals'
+    device ms is that of both k's launches, "device_ms_k2_k3", on each k's
+    entry that launched. Printed one line an entry."""
+    out = {}
+    for name in ("fold", "product_evals_k2", "product_evals_k3",
+                 "gruen_round"):
+        kern, _, k = name.partition("_k")
+        w = work[kern]
+        s = f"_k{k}" if k else ""
+        c = dict(launches=w["launches" + s], groups=w.get("groups" + s),
+                 bytes=w["bytes" + s], imads=w["imads" + s])
+        b_ms, b_by = bound(c["bytes"], c["imads"])
+        d = dev_ms.get(kern) if dev_ms and c["launches"] else None
+        out[name] = dict(c, bound_ms=b_ms, bound_by=b_by,
+                         **{"device_ms" + ("_k2_k3" if k else ""): d})
+        # the device ms is this entry's alone unless the other k launched
+        alone = not (k and w["launches_k" + ("3" if k == "2" else "2")])
+        dtxt = ("not measured" if d is None else f"{d:.4f} ms" if alone
+                else f"{d:.4f} ms (k = 2 and 3)")
+        share = f", share {b_ms / d * 100:.1f} %" if d and alone else ""
+        gtxt = f"{c['groups']} groups, " if c["groups"] is not None else ""
+        say(phase, f"{name} in {what}: {c['launches']} launches, {gtxt}"
+                     f"{c['bytes']} bytes, {c['imads']} IMADs, bound "
+                     f"{b_ms:.4f} ms by {b_by}, device {dtxt}{share}")
+    return out
+
+
+def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
+    """The sound prove of the sum-loop guest at T = 2^log_t: with
+    prove_jolt's defaults at tail 0 (every round of stages 1-4 and of the
+    batch opening on the GPU), timed, with its peak device memory and the
+    wrappers' counts for the whole prove and for the batch opening alone;
+    and on the host tier. The two proofs must be equal, and at T = 2^16
+    equal the JAX sound digest. Every kernel must have launched in the
+    sound prove, and the fold and the k = 2 product evals in its batch
+    opening, at no more than 16 groups a launch. With --profile, one more
+    tail-0 sound prove under torch.profiler and cProfile. Returns the
+    launches per JSON entry and the path figures."""
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(log_t))
+        os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with batch_opening_counts(torch) as bo:
+                dev, dev_s, stages = timed_prove(torch, path, sound=True)
+            peak = torch.cuda.max_memory_allocated()
+            launches, work = read_launches()
+            say("sound", f"sound device prove (defaults: backend 'device', "
+                         f"'cuda'), tail 0: {dev_s:.3f} s {stages}; peak "
+                         f"device memory {peak} bytes "
+                         f"({peak / 2 ** 20:.1f} MiB)")
+            say("sound", "the sound stages: " + ", ".join(
+                f"{k} {stages.get(k, 0):.4f} s" for k in SOUND_STAGES))
+            say("sound", f"launches in the sound prove: {launches}; "
+                         f"counters: {work}; in its batch opening: {bo}")
+            prof = None
+            if profile:
+                prof = profiled_sound_prove(torch, path, profile + "_sound")
+        finally:
+            del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+        host, host_s, host_stages = timed_prove(torch, path, sound=True,
+                                                backend="host")
+        say("sound", f"sound host-tier prove: {host_s:.3f} s {host_stages}")
+
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched in the sound prove: {idle}")
+    fb, pb = bo["fold"], bo["product_evals"]
+    if not (fb["launches"] and pb["launches_k2"]):
+        raise AssertionError(f"the batch opening launched no fold or no k = 2 "
+                             f"product evals: {bo}")
+    if (fb["groups"] > 16 * fb["launches"]
+            or pb["groups_k2"] + pb["groups_k3"] > 16 * pb["launches"]):
+        raise AssertionError(f"more than 16 groups a launch: {bo}")
+    figures = {"prove": path_figures(work, prof and prof["dev_ms"], "sound",
+                                     "the sound prove"),
+               "batch_opening": path_figures(bo, prof and prof["bo_ms"],
+                                             "sound", "its batch opening")}
+    figures.update(seconds=dev_s, host_seconds=host_s, stages=stages,
+                   peak_bytes=peak, busy_ms=prof and prof["busy_ms"],
+                   bo_launches=entry_launches(bo))
+    digest = hashlib.sha256(dev).hexdigest()
+    if dev != host:
+        raise AssertionError("sound device proof differs from the host tier's")
+    if log_t == 16:
+        if digest != JAX_SOUND_DIGEST_T16:
+            raise AssertionError(f"sound proof sha256 {digest} != JAX sound "
+                                 f"digest {JAX_SOUND_DIGEST_T16}")
+        say("sound", f"{len(dev)} sound proof bytes equal on the device and "
+                     f"the host tier; sha256 {digest} equals the JAX sound "
+                     f"digest")
+    else:
+        say("sound", f"{len(dev)} sound proof bytes equal; sha256 {digest} "
+                     f"(no JAX digest for T = 2^{log_t})")
+    return launches, figures
+
+
+def profiled_sound_prove(torch, path: str, out: str) -> dict:
+    """One more tail-0 sound prove under torch.profiler and cProfile, its
+    batch opening inside a record_function range; writes out.txt. Returns
+    the device busy ms, the device ms by kernel, and those of the batch
+    opening alone (None where the profiler could not attribute them)."""
+    import cProfile
+    import io
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cp = cProfile.Profile()
+    with batch_opening_counts(torch, ranged=True):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            cp.enable()
+            _, wall, stages = timed_prove(torch, path, sound=True)
+            cp.disable()
+    rows = p.key_averages()
+    try:
+        dev_ms = device_event_ms(p) or {}
+        bo_ms = device_event_ms(p, BO_RANGE)
+    except Exception as e:          # a measurement, not a check
+        say("sound", f"device times not measured: {e!r}")
+        dev_ms, bo_ms = {}, None
+    busy = dev_ms.get("all")
+    share = (f"{busy:.3f} ms ({busy / 1e3 / wall * 100:.3f} % of the wall "
+             f"clock)" if busy else "not measured")
+    say("sound", f"profiled sound prove (tail 0, under torch.profiler and "
+                 f"cProfile): {wall:.3f} s, device busy {share}; device ms "
+                 f"by kernel {dev_ms}; the batch opening's "
+                 f"{bo_ms if bo_ms else 'not measured'}")
+    host = io.StringIO()
+    pstats.Stats(cp, stream=host).sort_stats("cumulative").print_stats(60)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out + ".txt", "w") as f:
+        f.write(f"profiled sound prove (tail 0): {wall:.3f} s {stages}\n"
+                f"device busy {share}\n\n")
+        f.write(rows.table(sort_by="cuda_time_total", row_limit=25))
+        f.write("\n\n" + host.getvalue())
+    say("sound", f"profile written to {out}.txt")
+    return {"busy_ms": busy, "dev_ms": dev_ms, "bo_ms": bo_ms}
 
 
 def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
@@ -673,19 +974,7 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
                            or launches["gruen_round"] > 2 * log_t + 3):
             raise AssertionError(f"more launches than one a round: "
                                  f"{launches}")
-        path_stats = {}
-        for k in ("fold", "product_evals", "gruen_round"):
-            b_ms, b_by = bound(work[k]["bytes"], work[k]["imads"])
-            path_stats[k] = dict(launches=work[k]["launches"],
-                                 bytes=work[k]["bytes"],
-                                 imads=work[k]["imads"], bound_ms=b_ms,
-                                 bound_by=b_by, device_ms=dev_ms[k])
-            share = (f"{b_ms / dev_ms[k] * 100:.1f} %" if dev_ms[k]
-                     else "not measured")
-            say("slice", f"{k} on the path: {work[k]['launches']} launches, "
-                         f"{work[k]['bytes']} bytes, {work[k]['imads']} "
-                         f"IMADs, bound {b_ms:.4f} ms by {b_by}, device "
-                         f"{dev_ms[k]:.4f} ms, share {share}")
+        path_stats = path_figures(work, dev_ms, "slice", "the path")
         path_stats["peak_bytes"] = peak
 
         host, host_s, host_stages = timed_prove(torch, path, backend="host")
@@ -722,7 +1011,8 @@ def main() -> int:
                     help="log2 of the guest's trace length (default 16)")
     ap.add_argument("--profile", default=None,
                     help="also run the profiled tail-0 device prove under "
-                         "cProfile and write both profiles to PROFILE.txt")
+                         "cProfile and write both profiles to PROFILE.txt, "
+                         "and a profiled sound prove to PROFILE_sound.txt")
     args = ap.parse_args()
 
     import torch
@@ -758,17 +1048,25 @@ def main() -> int:
     stats: dict = {}
     check_kernels(torch, stats)
     launches, path = run_slice(torch, args.log_t, args.profile)
+    sound_launches, sound = run_sound(torch, args.log_t, args.profile)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
     kernels = []
     for name, src, rep in KERNELS:
-        p = path[name.split("_k")[0]]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                            launches=launches[name],
-                            **{k: stats[name][k] for k in keys},
-                            path_bound_ms=p["bound_ms"],
-                            path_device_ms=p["device_ms"]))
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=launches[name],
+                     **{k: stats[name][k] for k in keys},
+                     sound_launches=sound_launches[name],
+                     batch_opening_launches=sound["bo_launches"][name])
+        for pre, figs in (("path", path), ("sound_path", sound["prove"]),
+                          ("batch_opening", sound["batch_opening"])):
+            entry.update({f"{pre}_{k}": v for k, v in figs[name].items()
+                          if k.startswith(("bound_ms", "device_ms"))})
+        if name + "_batch_opening" in stats:
+            bs = stats[name + "_batch_opening"]
+            entry["batch_opening_shape"] = {k: bs[k] for k in keys + ("shape",)}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

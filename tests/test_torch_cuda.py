@@ -18,8 +18,11 @@ four threads a pair) at every live count, mixed groups in one launch
 must return to zero) and more than 16 groups; for the Gruen round, its
 three modes (eval, fold then eval, fold), the eval-only pass in both
 schedules (a thread a pair, two threads a pair) on each side of the
-crossover, and each of its ways to weight by the eq factors. Every
-wrapper's launch counter must go up by exactly one per launch. Tolerance: exact (equal words), since every
+crossover, and each of its ways to weight by the eq factors; the fold and
+the k = 2 product evals at the sound batch opening's shapes (groups of
+2^20 and 2^16 entries, 16 a launch); and the sound prove at T = 2^10 on
+the GPU against the host tier's bytes. Every wrapper's launch counter must
+go up by exactly one per launch. Tolerance: exact (equal words), since every
 value is a canonical field element.
 """
 
@@ -215,3 +218,55 @@ def test_wrappers_refuse_misaligned_tables(gen):
         gruen.gruen_round(tabs, 3, None, None, 0, 0, 0, 8, eval=False)
     with pytest.raises(ValueError, match="aligned"):
         evals.product_evals([(tabs, 8, 2)])
+
+
+@pytest.mark.parametrize("ngroups", [16, 19])
+def test_batch_opening_shapes_match_plain(gen, ngroups):
+    """The sound batch opening's rounds: k = 2, degree 2, groups of 2^20 and
+    2^16 entries at mixed live counts (a group's first round, its later
+    rounds, a group that wakes late), 16 groups a launch; the round's
+    evals and its fold, each group its own r."""
+    sizes = [(1 << 20, 1 << 19), (1 << 16, 1 << 15), (1 << 20, 1 << 10),
+             (1 << 16, 1), (1 << 20, 3)]
+    lives = [sizes[i % 5][1] for i in range(ngroups)]
+    tabs = [_tables(gen, 2, sizes[i % 5][0], 2 * lives[i])
+            for i in range(ngroups)]
+    launches = -(-ngroups // 16)
+    pc = evals.product_evals.counts
+    before = (fold.fold_many.counts["launches"], pc["launches"])
+    by_k = {k: pc[k] for k in ("bytes_k2", "bytes_k3", "imads_k3")}
+    groups = [(t, 0x1234567 * (i + 1), live)
+              for i, (t, live) in enumerate(zip(tabs, lives))]
+    eg = [(t, live, 2) for t, live in zip(tabs, lives)]
+    got = evals.product_evals(eg)
+    folded = fold.fold_many(groups)
+    torch.cuda.synchronize()
+    assert (fold.fold_many.counts["launches"], pc["launches"]) == (
+        before[0] + launches, before[1] + launches)
+    # all k = 2: the per-k counters put all the work under k = 2
+    assert {k: pc[k] - v for k, v in by_k.items()} == {
+        "bytes_k2": evals.work(eg)[0], "bytes_k3": 0, "imads_k3": 0}
+    for g, f, out in zip(groups, folded, got):
+        assert torch.equal(f, fold.fold_plain(*g))
+        assert torch.equal(out, evals.product_evals_plain(g[0], g[2], 2))
+
+
+def test_sound_prove_on_cuda_equals_the_cpu_bytes(tmp_path, monkeypatch):
+    """The sound prove of the sum-loop guest at T = 2^10 on the GPU (tail 0:
+    every engine round and every batch-opening round in the kernels) gives
+    the bytes of the port's host tier."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on a GPU")
+    from chip_smoke import sum_loop_elf
+    from zolt_tpu_torch.zkvm.pipeline import prove_jolt
+
+    path = str(tmp_path / "sum_loop_t10.elf")
+    with open(path, "wb") as f:
+        f.write(sum_loop_elf(10))
+    host = prove_jolt(path, sound=True, backend="host")
+    monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "0")
+    before = evals.product_evals.counts["groups_k2"]
+    dev = prove_jolt(path, sound=True)
+    assert evals.product_evals.counts["groups_k2"] > before
+    assert (dev.conv.proof.serialize_with_dory()
+            == host.conv.proof.serialize_with_dory())

@@ -155,6 +155,20 @@ def test_fold_many_plain_matches_frvec_per_table():
             zip(got, fold.fold_many_plain(groups))] == [True] * len(specs)
 
 
+def test_fold_many_hands_each_output_to_done_in_order():
+    """fold_many's `done(i, out)` sees every group's output once, in group
+    order, and they are the outputs it returns."""
+    specs = [(2, 16, 8), (1, 8, 3), (3, 4, 0)]
+    groups = [(_tables(400 + i, k, n, n), 5 + i, live)
+              for i, (k, n, live) in enumerate(specs)]
+    seen = []
+    got = fold.fold_many(groups, lambda i, out: seen.append((i, out)))
+    assert [i for i, _ in seen] == [0, 1, 2]
+    assert all(out is g for (_, out), g in zip(seen, got))
+    assert fold.fold_many([], lambda i, out: seen.append(i)) == []
+    assert len(seen) == 3
+
+
 def test_fold_checks_its_inputs():
     tabs = _tables(14, 2, 8, 8)
     with pytest.raises(ValueError):

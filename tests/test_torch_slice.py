@@ -64,17 +64,17 @@ def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
         f.write(_golden_array_elf())
     with pytest.raises(NotImplementedError, match="mesh"):
         prove_jolt(path, backend="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="sound"):
-        prove_jolt(path, sound=True)
     with pytest.raises(ValueError, match="explicit device"):
         prove_jolt(path, backend="device", device=None)
     for backend in ("gpu", None):
         with pytest.raises(ValueError, match="'device' or 'host'"):
             prove_jolt(path, backend=backend)
-    # the default is the GPU, and without one it raises: no fallback
+    # the default is the GPU, and without one it raises: no fallback, in
+    # either mode
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        prove_jolt(path)
+    for sound in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prove_jolt(path, sound=sound)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -106,3 +106,14 @@ def test_jax_digest_of_the_chip_smoke_guest(tmp_path):
         f.write(chip_smoke.sum_loop_elf(16))
     blob = jax_prove_jolt(path).conv.proof.serialize_with_dory()
     assert hashlib.sha256(blob).hexdigest() == chip_smoke.JAX_DIGEST_T16
+
+
+@pytest.mark.slow
+def test_jax_sound_digest_of_the_chip_smoke_guest(tmp_path):
+    """Recompute the digest chip_smoke.py holds the GPU's sound prove to:
+    the JAX package's sound prove of the sum-loop guest at T = 2^16."""
+    path = str(tmp_path / "sum_loop_t16.elf")
+    with open(path, "wb") as f:
+        f.write(chip_smoke.sum_loop_elf(16))
+    blob = jax_prove_jolt(path, sound=True).conv.proof.serialize_with_dory()
+    assert hashlib.sha256(blob).hexdigest() == chip_smoke.JAX_SOUND_DIGEST_T16

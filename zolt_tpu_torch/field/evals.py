@@ -11,7 +11,8 @@ in one launch: on CUDA tensors it launches the kernel or raises, on CPU
 tensors it runs `product_evals_plain` group by group. Its counters, plain
 integers in `product_evals.counts`: "launches", "launches_k2"/"launches_k3"
 (launches that carried a group of that k), "groups_k2"/"groups_k3", and
-the "bytes" and "imads" the launched groups need (`work`).
+the "bytes" and "imads" the launched groups need (`work`), in all and by
+k ("bytes_k2", "imads_k3", ...).
 """
 
 from __future__ import annotations
@@ -155,16 +156,18 @@ def product_evals(groups) -> list[torch.Tensor]:
         outs += _launch(chunk)
         c = product_evals.counts
         c["launches"] += 1
-        ks = [tabs.shape[0] for tabs, _, _ in chunk]
         for k in (2, 3):
-            c[f"groups_k{k}"] += ks.count(k)
-            c[f"launches_k{k}"] += k in ks
-        nbytes, imads = work(chunk)
-        c["bytes"] += nbytes
-        c["imads"] += imads
+            of_k = [g for g in chunk if g[0].shape[0] == k]
+            nbytes, imads = work(of_k)
+            c[f"groups_k{k}"] += len(of_k)
+            c[f"launches_k{k}"] += bool(of_k)
+            c[f"bytes_k{k}"] += nbytes
+            c[f"imads_k{k}"] += imads
+            c["bytes"] += nbytes
+            c["imads"] += imads
     return outs
 
 
 product_evals.counts = dict.fromkeys(
     ("launches", "launches_k2", "launches_k3", "groups_k2", "groups_k3",
-     "bytes", "imads"), 0)
+     "bytes", "imads", "bytes_k2", "bytes_k3", "imads_k2", "imads_k3"), 0)

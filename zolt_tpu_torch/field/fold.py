@@ -4,7 +4,7 @@
 
 The output holds the new live prefix only, (k, live_pairs, 8). `fold_many`
 is the wrapper: it folds several stacks ("groups"), each by its own r, in
-one launch of csrc/fold.cu (which replaces zolt_tpu/field/pallas_redc.py
+one launch of csrc/fold.cu per 16 groups (which replaces zolt_tpu/field/pallas_redc.py
 fold_tail, fold_tail_stack, fold_rows_stack and fold_shared) on CUDA
 tensors, or raises; on CPU tensors it runs `fold_many_plain`, the torch
 version of the same function. `fold` is one group. The counters, plain
@@ -42,6 +42,11 @@ def _check(tabs: torch.Tensor, live_pairs: int) -> None:
     if not 0 <= live_pairs <= tabs.shape[1] // 2:
         raise ValueError(f"live_pairs {live_pairs} out of range for "
                          f"n = {tabs.shape[1]}")
+
+
+def _group(tabs: torch.Tensor, r, live_pairs) -> tuple:
+    _check(tabs, int(live_pairs))
+    return tabs, int(r), int(live_pairs)
 
 
 def work(k: int, live_pairs: int) -> tuple[int, int]:
@@ -102,19 +107,26 @@ def _launch(groups) -> list[torch.Tensor]:
     return outs
 
 
-def fold_many(groups) -> list[torch.Tensor]:
+def fold_many(groups, done=None) -> list[torch.Tensor]:
     """Fold each group (tabs (k, n, 8), r, live_pairs) by its challenge r (a
     canonical int) into a new (k, live_pairs, 8) tensor (the fold is out of
     place); up to MAX_GROUPS groups a launch, groups with no live pair
-    take none."""
-    groups = [(tabs, int(r), int(live)) for tabs, r, live in groups]
-    for tabs, _, live in groups:
-        _check(tabs, live)
-    if all(tabs.device.type == "cpu" for tabs, _, _ in groups):
-        return fold_many_plain(groups)
+    take none. `done(i, out)`, where given, gets each group's output as
+    soon as its launch is made, and fold_many drops its own hold on that
+    launch's inputs first: a caller that lets go of its tables there keeps
+    the out-of-place copies one launch wide."""
+    groups = [_group(*g) for g in groups]
+    on_cpu = all(g[0].device.type == "cpu" for g in groups)
+    step = max(len(groups), 1) if on_cpu else MAX_GROUPS
     outs = []
-    for i in range(0, len(groups), MAX_GROUPS):
-        outs += _launch(groups[i: i + MAX_GROUPS])
+    for i in range(0, len(groups), step):
+        chunk = groups[i: i + step]
+        groups[i: i + step] = [None] * len(chunk)
+        outs += fold_many_plain(chunk) if on_cpu else _launch(chunk)
+        del chunk
+        if done is not None:
+            for j in range(i, len(outs)):
+                done(j, outs[j])
     return outs
 
 

@@ -14,12 +14,12 @@ live prefix only: each fold writes a new stack of half the length (the
 JAX engine's fixed size behind a zero tail is XLA's static shapes). Binds
 are deferred: bind(r) launches nothing and records r; the pending fold
 runs when the engine's evals are next asked for, all of a round's engines
-in one grouped launch of kernel 1 (field/fold.py), followed by one
-grouped launch of kernels 2-3 (field/evals.py) for their evals
-(round_evals_many). Whatever reads the tables (finals, the host handoff)
-flushes a pending fold first; flush_many flushes several engines in one
-launch. Once the live prefix is at most `tail_n()` entries the remaining
-rounds move to the host FrVec tier.
+in one grouped launch of kernel 1 (field/fold.py) per 16 engines,
+followed by one grouped launch of kernels 2-3 (field/evals.py) per 16 for
+their evals (round_evals_many). Whatever reads the tables (finals, the
+host handoff) flushes a pending fold first; flush_many flushes several
+engines the same way. Once the live prefix is at most `tail_n()` entries
+the remaining rounds move to the host FrVec tier.
 
 "Passenger" tables ride along in the fold (no eval contribution) so that
 instances can expose final openings of constituent polynomials (e.g. the
@@ -78,19 +78,22 @@ def drain_futures(futures: list) -> list:
 
 def flush_many(engines) -> None:
     """Run the pending folds of these DeviceProductTables (None entries
-    skipped) in one grouped launch of kernel 1."""
+    skipped) in grouped launches of kernel 1, 16 engines a launch; each
+    launch's engines drop their old stacks before the next launch
+    allocates, so the fold's out-of-place copies stay one launch wide."""
     pend = [e for e in engines if e is not None and e._pending is not None]
-    if not pend:
-        return
-    outs = fold_many([(e.tables, e._pending, e.live) for e in pend])
-    for e, tabs in zip(pend, outs):
-        e.tables, e._pending = tabs, None
+
+    def done(i, tabs):
+        pend[i].tables, pend[i]._pending = tabs, None
+
+    fold_many(((e.tables, e._pending, e.live) for e in pend), done)
 
 
 def round_evals_many(engines) -> list:
     """The (degree+1, 8) device evals of several DeviceProductTables'
-    current round: their pending folds in one grouped launch of kernel 1,
-    then their evals in one grouped launch of kernels 2-3 (no host sync).
+    current round: their pending folds in grouped launches of kernel 1,
+    then their evals in grouped launches of kernels 2-3, 16 engines a
+    launch (no host sync).
     A None entry, or an engine whose narrow tail has moved to the host,
     gets None: callers take its round_evals. Download the futures with
     drain_futures."""

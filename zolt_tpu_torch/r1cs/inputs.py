@@ -232,7 +232,7 @@ def _virtual_cycle_witness(step, next_step) -> list[int]:
     return w
 
 
-def cycle_witness(step, next_step) -> list[int]:
+def cycle_witness(step, next_step, sound: bool = False) -> list[int]:
     """Build the 43 witness values for one real trace step (canonical ints)."""
     if step.is_noop:
         return noop_witness()
@@ -277,8 +277,15 @@ def cycle_witness(step, next_step) -> list[int]:
         w[Inp.RamWriteValue] = mem_val % P
         w[Inp.RdWriteValue] = mem_val % P
     elif is_store:
-        # the reference's rv(store) = stored-value convention
-        w[Inp.RamReadValue] = mem_val % P
+        if sound and step.memory_pre_value is not None:
+            # sound mode: the true Jolt semantic rv(store) = pre-value, so
+            # the RWC input claim rv + gamma*wv equals the instance's true
+            # sum (no R1CS constraint pins rv for stores, so this stays
+            # satisfying; reference-compat mode reproduces the reference's
+            # rv(store) = stored-value convention)
+            w[Inp.RamReadValue] = step.memory_pre_value % P
+        else:
+            w[Inp.RamReadValue] = mem_val % P
         w[Inp.RamWriteValue] = step.rs2_value % P
     else:
         w[Inp.RdWriteValue] = step.rd_value % P if writes_to_rd else 0
@@ -288,6 +295,21 @@ def cycle_witness(step, next_step) -> list[int]:
     left_is_pc = 1 if opcode in (0x17, 0x6F) else 0
     right_is_rs2 = 1 if opcode in (0x33, 0x63, 0x3B) else 0
     right_is_imm = 1 if opcode in (0x13, 0x03, 0x67, 0x23, 0x37, 0x17, 0x6F, 0x1B) else 0
+    zero_output = False
+    if sound:
+        # Sound-mode RAF binding (zkvm/raf_gadgets.py): operands that are
+        # not derivable from the committed lookup index (MULH*, the W
+        # family, the div/rem dividend) have their source flags zeroed, so
+        # the operand columns are provably zero and every remaining lookup
+        # claim is index-bound. LookupOutput is zeroed where the class has
+        # no output gadget (loads/stores/system/W) — unconstrained slots.
+        from ..zkvm.raf_gadgets import needs_witness_adjust
+
+        zl, zr, zero_output = needs_witness_adjust(instr)
+        if zl:
+            left_is_rs1 = left_is_pc = 0
+        if zr:
+            right_is_rs2 = right_is_imm = 0
     w[Inp.FlagLeftOperandIsRs1] = left_is_rs1
     w[Inp.FlagLeftOperandIsPC] = left_is_pc
     w[Inp.FlagRightOperandIsRs2] = right_is_rs2
@@ -300,7 +322,7 @@ def cycle_witness(step, next_step) -> list[int]:
     w[Inp.RightInstructionInput] = right
     w[Inp.Product] = left * right % P
 
-    w[Inp.LookupOutput] = compute_lookup_output(step) % P
+    w[Inp.LookupOutput] = 0 if zero_output else compute_lookup_output(step) % P
     w[Inp.PC] = step.pc % P
     w[Inp.UnexpandedPC] = step.unexpanded_pc % P
 
@@ -377,12 +399,26 @@ def cycle_witness(step, next_step) -> list[int]:
     return w
 
 
-def witness_matrix(padded_steps) -> list[list[int]]:
-    """Per-cycle witness rows for the whole (padded) trace (address-PC
-    indexing, as the reference's compat traces have it)."""
+def witness_matrix(padded_steps, sound: bool = False,
+                   slots: list[int] | None = None) -> list[list[int]]:
+    """Per-cycle witness rows for the whole (padded) trace.
+
+    slots: when the trace contains virtual-sequence rows, the PC column
+    must be the bytecode SLOT index (constraint #17 chains PC by +1 through
+    a sequence and into the following real row — only slot indexing makes
+    that contiguous). The pipeline passes bc_index.slots_per_cycle(...)
+    here; address-PC traces (reference-compat, no sequences) pass None."""
+    out = []
     n = len(padded_steps)
-    return [cycle_witness(step, padded_steps[i + 1] if i + 1 < n else None)
-            for i, step in enumerate(padded_steps)]
+    for i, step in enumerate(padded_steps):
+        nxt = padded_steps[i + 1] if i + 1 < n else None
+        w = cycle_witness(step, nxt, sound=sound)
+        if slots is not None and not step.is_noop:
+            w[Inp.PC] = slots[i] % P
+            if nxt is not None and not nxt.is_noop:
+                w[Inp.NextPC] = slots[i + 1] % P
+        out.append(w)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +479,9 @@ def _steps_to_arrays(steps):
     return out
 
 
-def witness_columns(padded_steps, raw_out: dict | None = None):
+def witness_columns(padded_steps, sound: bool = False,
+                    slots: list[int] | None = None,
+                    raw_out: dict | None = None):
     """The 43 witness COLUMNS as FrVec, built vectorized (numpy masks + the
     native from_u64/from_i128 ingest) — same values as `witness_matrix`
     transposed (differential-tested in tests/test_witness_columns.py), but
@@ -461,10 +499,10 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
     n = next((i for i, s in enumerate(padded_steps) if s.is_noop), T)
     real = padded_steps[:n]
     if any(s.seq_pos for s in real):
-        rows = witness_matrix(padded_steps)
+        rows = witness_matrix(padded_steps, sound=sound, slots=slots)
         return [FrVec.from_ints([rows[j][i] for j in range(T)])
                 for i in range(NUM_INPUTS)]
-    cols_np, comp, _ = _steps_to_arrays(real)
+    cols_np, comp, has_pre = _steps_to_arrays(real)
 
     instr = cols_np["instruction"]
     pc = cols_np["pc"]
@@ -473,6 +511,7 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
     rs2v = cols_np["rs2_value"]
     rdv = cols_np["rd_value"]
     mem_val = cols_np["memory_value"]
+    mem_pre = cols_np["memory_pre_value"]
 
     u1 = np.uint64(1)
     opcode = (instr & np.uint64(0x7F)).astype(np.uint32)
@@ -518,11 +557,24 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
     rs1c = np.where(reads_rs1, rs1v, np.uint64(0))
     rs2c = np.where(reads_rs2, rs2v, np.uint64(0))
 
-    # -- operand-source flags -----------------------------------------------
+    # -- operand-source flags (+ sound RAF-gadget adjustments) --------------
     left_is_rs1 = np.isin(opcode, (0x33, 0x13, 0x03, 0x67, 0x23, 0x63, 0x1B, 0x3B))
     left_is_pc = np.isin(opcode, (0x17, 0x6F))
     right_is_rs2 = np.isin(opcode, (0x33, 0x63, 0x3B))
     right_is_imm = np.isin(opcode, (0x13, 0x03, 0x67, 0x23, 0x37, 0x17, 0x6F, 0x1B))
+    zero_output = np.zeros(n, dtype=bool)
+    if sound and n:
+        from ..zkvm.raf_gadgets import needs_witness_adjust
+
+        uniq, inv = np.unique(instr, return_inverse=True)
+        adj = [needs_witness_adjust(int(u)) for u in uniq.tolist()]
+        zl = np.array([a[0] for a in adj], dtype=bool)[inv]
+        zr = np.array([a[1] for a in adj], dtype=bool)[inv]
+        zero_output = np.array([a[2] for a in adj], dtype=bool)[inv]
+        left_is_rs1 &= ~zl
+        left_is_pc &= ~zl
+        right_is_rs2 &= ~zr
+        right_is_imm &= ~zr
 
     # -- left / right / product --------------------------------------------
     # left_is_rs1 and left_is_pc are disjoint opcode sets, as are the right
@@ -566,6 +618,8 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
     lookup_out = np.where(opcode == 0x67,
                           (rs1v + i_imm.astype(np.uint64)) & ~u1, lookup_out)
     lookup_out = np.where(is_branch, taken.astype(np.uint64), lookup_out)
+    if sound:
+        lookup_out = np.where(zero_output, np.uint64(0), lookup_out)
 
     # -- per-opcode flag groups --------------------------------------------
     is_op = opcode == 0x33
@@ -618,7 +672,11 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
                         np.where(is_store, np.uint64(0),
                                  np.where(writes_to_rd, rdv, np.uint64(0))))
     ram_read = np.where(is_load, mem_val, np.uint64(0))
-    ram_read = np.where(is_store, mem_val, ram_read)
+    if sound:
+        store_pre = np.where(has_pre.astype(bool), mem_pre, mem_val)
+        ram_read = np.where(is_store, store_pre, ram_read)
+    else:
+        ram_read = np.where(is_store, mem_val, ram_read)
     ram_write = np.where(is_load, mem_val,
                          np.where(is_store, rs2v, np.uint64(0)))
 
@@ -693,6 +751,20 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
     out[Inp.FlagDoNotUpdateUnexpandedPC] = FrVec.from_u64_array(tail)
     out[Inp.FlagIsNoop] = FrVec.from_u64_array(tail.copy())
 
+    if slots is not None:
+        # slot-PC indexing (expanded bytecode, no virtual rows executed):
+        # replace the address-based PC/NextPC columns with slot indices
+        sl = np.asarray(slots[:n], dtype=np.uint64)
+        out[Inp.PC] = pad_u64(sl)
+        nxt = np.zeros(n, dtype=np.uint64)
+        if n > 1:
+            nxt[:-1] = sl[1:]
+        if n < T:
+            nxt[-1] = 0          # successor is the noop tail
+        elif n == T and n > 0:
+            nxt[-1] = 0
+        out[Inp.NextPC] = pad_u64(nxt)
+
     if raw_out is not None:
         # Raw (pre-Montgomery) column forms for the device column store
         # (parallel/device_cols): u64 value lanes, i128 (lo, hi ∈ {0,−1})
@@ -766,4 +838,7 @@ def witness_columns(padded_steps, raw_out: dict | None = None):
                                  np.ones(T - n, np.uint8)])
         r[Inp.FlagDoNotUpdateUnexpandedPC] = ("flag", tail_f)
         r[Inp.FlagIsNoop] = ("flag", tail_f.copy())
+        if slots is not None:
+            r[Inp.PC] = ru(sl)
+            r[Inp.NextPC] = ru(nxt)
     return out

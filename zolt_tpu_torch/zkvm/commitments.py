@@ -442,6 +442,26 @@ def build_ram_ra_u8(steps, size: int, shift: int) -> np.ndarray:
     return out
 
 
+def ram_ra_onehot_positions(steps, size: int, shift: int, start_address: int,
+                            log_ram_k: int) -> np.ndarray:
+    """Sound mode: one-hot positions of RamRa chunk `shift` over the
+    (chunk-value × cycle) cube, flat index k_d·size + j. Chunks the
+    word-SLOT index (addr − start)/8 — the stage-2 RWC/RAF address space —
+    with zero rows on cycles without a RAM access (see stage67.py)."""
+    arrs, n = _real_arrays(steps, size)
+    u = np.uint64
+    mask = u((1 << LOG_K_CHUNK) - 1)
+    n_vars = size.bit_length() - 1
+    ha = arrs["_has_addr"][:n] != 0
+    addr = arrs["memory_addr"][:n]
+    valid = ha & (addr >= u(start_address))
+    k = np.where(valid, (addr - u(start_address)) >> u(3), u(0))
+    valid &= k < u(1 << log_ram_k)
+    j = np.flatnonzero(valid)
+    kv = ((k[j] >> u(shift)) & mask).astype(np.int64)
+    return (kv << np.int64(n_vars)) | j
+
+
 def build_bytecode_ra_u8(steps, size: int, shift: int) -> np.ndarray:
     """Bytecode chunk poly values. NOTE: unlike the other builders, noop
     padding rows carry the halt pc, so this one spans the PADDED trace."""
@@ -467,33 +487,105 @@ class CommitmentPhase:
     bytecode_poly_size: int = 0
     memory_poly_size: int = 0
     reg_poly_size: int = 0
+    # sound mode: PCS-binding layout (see pcs/batch.py)
+    srs: object = None
+    global_num_vars: int = 0
+    polys: list | None = None
+
+
+def sound_layout_num_vars(trace_length: int, bytecode_len: int) -> int:
+    """Global (even) num_vars of the sound-mode commitment layout: every
+    committed poly is laid out as a 2^{N/2} × 2^{N/2} Dory matrix so GT
+    commitments are γ-RLC-homomorphic for the batch opening. Must cover the
+    one-hot RamRa chunk cubes (2^LOG_K_CHUNK × trace)."""
+    reg_size = _next_pow2(max(trace_length, 2))
+    bc_size = _next_pow2(max(bytecode_len, 2))
+    n = max(reg_size, bc_size).bit_length() - 1
+    n = max(n, (reg_size.bit_length() - 1) + LOG_K_CHUNK)
+    return n + (n & 1)
 
 
 def commit_and_absorb(transcript, steps, bytecode_len: int,
-                      memory_trace_len: int, srs=None) -> CommitmentPhase:
+                      memory_trace_len: int, srs=None,
+                      sound: bool = False, log_ram_k: int = 0,
+                      start_address: int = 0, bc_index=None) -> CommitmentPhase:
     """Build + commit + absorb all committed polys; mirrors
     src/zkvm/mod.zig:817-1010. `steps` is the (padded) execution trace.
     Every commitment runs on the host C tier (the device row-MSM tier is
-    not ported yet)."""
+    not ported yet).
+
+    sound=True switches to the PCS-binding layout: the cycle-indexed RAM
+    polys (RamInc, RamRa) span the padded trace cube (so their MLEs equal
+    the claims the stage provers emit), every poly is committed under one
+    global square Dory layout (column width 2^{N/2}, N even) so the batch
+    opening's γ-RLC of GT commitments matches the RLC'd polynomial, and the
+    tables are retained for the joint opening prover."""
     from ..native.frvec import FrVec
 
     res = CommitmentPhase()
     res.bytecode_poly_size = _next_pow2(max(bytecode_len, 2))
-    res.memory_poly_size = _next_pow2(max(memory_trace_len, 2))
+    res.memory_poly_size = (_next_pow2(max(len(steps), 2)) if sound
+                            else _next_pow2(max(memory_trace_len, 2)))
     res.reg_poly_size = _next_pow2(max(len(steps), 2))
 
     log_bytecode_k = res.bytecode_poly_size.bit_length() - 1
-    # RamRa chunks the raw address over the memory-trace cube
-    log_ram_k = res.memory_poly_size.bit_length() - 1
+    if not sound:
+        # compat: RamRa chunks the raw address over the memory-trace cube
+        log_ram_k = res.memory_poly_size.bit_length() - 1
     res.instruction_d = (LOG_K_INSTRUCTION + LOG_K_CHUNK - 1) // LOG_K_CHUNK
-    res.bytecode_d = max(1, (log_bytecode_k + LOG_K_CHUNK - 1) // LOG_K_CHUNK)
+    if sound:
+        # sound: BytecodeRa chunks the bytecode SLOT index (stage 10-12
+        # layout, zkvm/bytecode_raf.py); requires the public slot index
+        if bc_index is None:
+            raise ValueError("sound commitments need bc_index "
+                             "(zkvm.bytecode_tables.BytecodeIndex)")
+        from .bytecode_raf import bc_chunk_count
+
+        res.bytecode_d = bc_chunk_count(bc_index.log_k)
+    else:
+        res.bytecode_d = max(1, (log_bytecode_k + LOG_K_CHUNK - 1) // LOG_K_CHUNK)
     res.ram_d = max(1, (log_ram_k + LOG_K_CHUNK - 1) // LOG_K_CHUNK)
 
-    if srs is None:
+    if sound:
+        res.global_num_vars = sound_layout_num_vars(len(steps), bytecode_len)
+        if srs is None:
+            srs = dory.setup(res.global_num_vars)
+        res.srs = srs
+    elif srs is None:
         max_size = max(res.bytecode_poly_size, res.memory_poly_size,
                        res.reg_poly_size)
         log_size = max(1, (max_size.bit_length() - 1) + 1)
         srs = dory.setup(log_size)
+
+    polys = [build_rd_inc(steps, res.reg_poly_size),
+             build_ram_inc(steps, res.memory_poly_size)]
+    if sound:
+        # one-hot (chunk-value × cycle) cubes over the SOUND lookup index
+        # (the stage-8/9/10 lookups argument, zkvm/lookups_raf.py), the
+        # RamRa chunks over the word-slot index (stages 6-7, stage67.py)
+        # and the bytecode-slot chunks (stages 10-12)
+        from .bytecode_raf import bc_oh_positions, io_oh_positions
+
+        n_cycle_vars = res.reg_poly_size.bit_length() - 1
+        cube = (1 << LOG_K_CHUNK) * res.reg_poly_size
+        positions = list(io_oh_positions(steps, n_cycle_vars))
+        for d in range(res.ram_d):
+            shift = LOG_K_CHUNK * (res.ram_d - 1 - d)
+            positions.append(ram_ra_onehot_positions(
+                steps, res.reg_poly_size, shift, start_address, log_ram_k))
+        positions += bc_oh_positions(bc_index.slots_per_cycle(steps),
+                                     n_cycle_vars, bc_index.log_k)
+        polys += [FrVec.indicator(cube, pos) for pos in positions]
+        res.polys = polys
+        # commit in the GLOBAL cube's matrix layout without materializing
+        # the zero padding: missing rows are identity pairing factors, and
+        # FrVec cubes stream canonical bytes straight into the row MSMs
+        for poly in polys:
+            gt = dory.commit(srs, poly, num_vars=res.global_num_vars)
+            res.commitments.append(dory.commitment_bytes(gt))
+        for c in res.commitments:
+            transcript.append_gt(c)
+        return res
 
     idx_lo, idx_hi = jolt_lookup_lo_hi(steps)
     small = list(build_instruction_ra_u8(idx_lo, idx_hi, res.reg_poly_size,
@@ -505,8 +597,7 @@ def commit_and_absorb(transcript, steps, bytecode_len: int,
         shift = LOG_K_CHUNK * (res.bytecode_d - 1 - d)
         small.append(build_bytecode_ra_u8(steps, res.bytecode_poly_size,
                                           shift))
-    polys = [build_rd_inc(steps, res.reg_poly_size),
-             build_ram_inc(steps, res.memory_poly_size)] + small
+    polys += small
     for poly in polys:
         if isinstance(poly, np.ndarray):
             # u8 values, ingested one poly at a time

@@ -52,13 +52,14 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     1-4 as torch tensors on `device`: "cuda" (the default) launches the
     hand-written kernels of zolt_tpu_torch/csrc and raises where there is
     no CUDA device, "cpu" runs their plain torch versions. backend="host"
-    keeps every round on the host C tier. All give the same bytes."""
+    keeps every round on the host C tier. All give the same bytes.
+
+    sound=True proves the real stages 5-12 in place of the reference's
+    zero stages and binds every committed claim with one PCS batch opening
+    (pcs/batch.py), whose reduction sumcheck runs on `device` too."""
     if backend == "mesh" or mesh is not None:
         raise NotImplementedError(
             "backend='mesh' is not ported yet (ROADMAP Queue 1 item 13)")
-    if sound:
-        raise NotImplementedError(
-            "sound=True is not ported yet (ROADMAP Queue 1 items 10-11)")
     if backend not in ("device", "host"):
         raise ValueError(f"backend {backend!r}: 'device' or 'host'")
     if backend == "device":
@@ -70,8 +71,25 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
                                "or backend='host'")
     else:
         backend = device = None         # the stages' spelling of the host tier
-    emu = run_elf(elf_path)
+    # sound mode traces div-family instructions as virtual sequences
+    # (vm/virtual.py) so every lookup is index-bound; reference-compat
+    # traces keep the reference's direct div/rem rows
+    emu = run_elf(elf_path, expand_virtual=sound)
     padded = pad_with_noop(list(emu.trace))
+    if sound:
+        # The sound val-final/output identities require every final-image
+        # byte to be backed by a witness access. The guest must store the
+        # termination word itself (Jolt guest-halt convention; the
+        # emulator's synthetic ram.trace termination write has no witness
+        # row). Fail fast instead of emitting an unverifiable proof.
+        term = emu.device.layout.termination
+        if not any((not s.is_noop) and s.is_memory_write
+                   and s.memory_addr == term for s in padded):
+            raise ValueError(
+                "sound mode requires the guest to write the termination "
+                "word itself (guest halt convention, e.g. "
+                "Asm.halt(layout, provable=True)); this program terminates "
+                "without a traced termination store")
     trace_length = len(padded)
     n_cycle_vars = trace_length.bit_length() - 1
 
@@ -91,6 +109,11 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     from ..utils.log import metrics
 
     bytecode_len = len(getattr(emu, "program_bytecode", b"")) or _bytecode_len(elf_path)
+    bc_index = None
+    if sound:
+        from .bytecode_tables import BytecodeIndex
+
+        bc_index = BytecodeIndex.from_elf(elf_path)
     phase = None
     if golden_commitments is not None:
         for c in golden_commitments:
@@ -99,23 +122,81 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     else:
         with metrics.stage("commitments"):
             phase = commit_and_absorb(transcript, padded, bytecode_len,
-                                      len(emu.ram.trace), srs=srs)
+                                      len(emu.ram.trace), srs=srs, sound=sound,
+                                      log_ram_k=LOG_RAM_K,
+                                      start_address=emu.device.layout.lowest_address(),
+                                      bc_index=bc_index)
         commitment_bytes = list(phase.commitments)
 
     tau = derive_tau(transcript, n_cycle_vars)
     conv = convert_with_transcript(padded, tau, transcript, emulator=emu,
-                                   log_ram_k=LOG_RAM_K, stages=stages,
+                                   log_ram_k=LOG_RAM_K, stages=stages, sound=sound,
                                    stage1_backend=stage1_backend,
-                                   device=device, backend=backend)
+                                   device=device, bc_index=bc_index,
+                                   backend=backend)
 
     proof = conv.proof
     proof.commitments = commitment_bytes
     proof.trace_length = trace_length
     proof.ram_k = 1 << LOG_RAM_K
     proof.bytecode_k = BYTECODE_K
-    proof.rw_config = ReadWriteConfig.default(n_cycle_vars, LOG_RAM_K)
+    if sound:
+        # address-first RAM RWC schedule (phase1 == 0): the honest prover's
+        # binding order, consumed by the verifier's point bookkeeping
+        proof.rw_config = ReadWriteConfig(0, LOG_RAM_K, n_cycle_vars // 2,
+                                          ReadWriteConfig.LOG_REGISTER_COUNT)
+    else:
+        proof.rw_config = ReadWriteConfig.default(n_cycle_vars, LOG_RAM_K)
     proof.one_hot_config = OneHotConfig()
     proof.dory_layout = 0
+    if sound and phase is not None and stages >= 4:
+        # PCS binding: reduce the committed-poly opening claims to ONE Dory
+        # opening on the live transcript (pcs/batch.py; verified by
+        # verify_jolt against the absorbed GT commitments).
+        from ..pcs import batch
+        from .opening_binding import committed_claim_specs, sound_claim_specs
+
+        values = [conv.stage4.regs_claims["inc"],
+                  conv.stage2_batch.rwc_inc_claim,
+                  conv.stage4.val_eval_openings["inc"],
+                  conv.stage4.val_final_openings["inc"]]
+        if stages >= 5 and conv.stage5 is not None:
+            specs = sound_claim_specs(conv.stage2_batch.challenges,
+                                      conv.stage4.challenges,
+                                      conv.stage5.challenges,
+                                      conv.stage6.challenges,
+                                      conv.stage7.challenges, tau,
+                                      n_cycle_vars, LOG_RAM_K,
+                                      phase.instruction_d)
+            values += ([conv.stage5.inc_claim]
+                       + conv.stage6.oh_rwc_claims + conv.stage6.oh_raf_claims
+                       + conv.stage7.oh_claims)
+            if conv.sound_lookups is not None:
+                from .bytecode_raf import bc_chunk_count, bc_chunk_points
+                from .lookups_raf import chunk_points
+                from .opening_binding import lookups_oh_specs
+
+                slp = conv.sound_lookups
+                bc_d = bc_chunk_count(bc_index.log_k)
+                specs += lookups_oh_specs(
+                    chunk_points(slp.s8.r_addr), slp.s9.challenges,
+                    slp.s10.challenges,
+                    bc_chunk_points(slp.s11.r_addr, bc_d),
+                    slp.s12.challenges,
+                    phase.instruction_d, phase.ram_d)
+                values += (slp.s9.oh_claims + slp.s10.io_oh_claims
+                           + slp.s10.bc_oh_claims + slp.s12.oh_claims)
+        else:
+            specs = committed_claim_specs(conv.stage2_batch.challenges,
+                                          conv.stage4.challenges,
+                                          n_cycle_vars, LOG_RAM_K)
+        claims = [batch.BatchClaim(b"", pt, v, evals=phase.polys[ci])
+                  for (_, ci, pt), v in zip(specs, values)]
+        with metrics.stage("batch_opening"):
+            bproof = batch.prove_batch_opening(transcript, claims, phase.srs,
+                                               phase.global_num_vars,
+                                               backend=backend, device=device)
+        proof.batch_opening = batch.serialize_batch_opening(bproof)
     if with_joint_proof:
         proof.joint_opening_proof = build_joint_opening_proof(
             elf_path, len(emu.ram.trace), trace_length)

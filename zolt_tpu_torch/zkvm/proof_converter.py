@@ -200,24 +200,40 @@ class JoltConversion:
     stage2_batch: object = None
     stage3: object = None
     stage4: object = None
+    stage5: object = None
+    stage6: object = None
+    stage7: object = None
+    sound_lookups: object = None  # SoundLookupsProof (stages 8-12)
     input_evals: list[int] = dfield(default_factory=list)
 
 
 def convert_with_transcript(padded_steps, tau: list[int], transcript,
                             emulator=None, log_ram_k: int = 16,
-                            stages: int = 7,
+                            stages: int = 7, sound: bool = False,
                             stage1_backend: str = "host",
-                            device=None,
+                            device=None, bc_index=None,
                             backend: str | None = None) -> JoltConversion:
-    """Drive the Jolt proof stages in reference-compat mode. Pass the
-    finished emulator to enable the stage-2 batched sumcheck (needs RAM
-    traces)."""
+    """Drive the Jolt proof stages implemented so far. Pass the finished
+    emulator to enable the stage-2 batched sumcheck (needs RAM traces).
+
+    sound=True departs from reference byte-compatibility to make the
+    stage-2 RAF/RWC instances publicly checkable: the synthetic
+    termination access (which has no witness row) is excluded — the guest
+    must write the termination word itself (guest halt convention) — and
+    RAF aggregates with the BE-by-cycle eq table so its input claim equals
+    the true sum; stages 5-12 run their real protocols."""
     from ..utils.log import metrics, zlog
 
     conv = JoltConversion()
     with metrics.stage("witness_gen"):
+        # expanded bytecode (virtual sequences) switches the PC column to
+        # slot indexing — constraint #17 chains PC by +1 through sequences
+        slots = (bc_index.slots_per_cycle(padded_steps)
+                 if bc_index is not None and getattr(bc_index, "expanded", False)
+                 else None)
         raw_cols: dict | None = {} if backend == "device" else None
-        wcols = ri.witness_columns(padded_steps, raw_out=raw_cols)
+        wcols = ri.witness_columns(padded_steps, sound=sound, slots=slots,
+                                   raw_out=raw_cols)
     dev_store = None
     if raw_cols:
         # device column store: raw-uploaded, Montgomery-encoded on chip —
@@ -261,6 +277,8 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
         tau2 = r_spartan + [s2u.tau_high]
         final_ram = dict(emulator.ram.memory)
         accesses = emulator.ram.trace
+        if sound:
+            accesses = _witness_accesses(padded_steps)
         with metrics.stage("stage2"):
             conv.stage2_batch = prove_stage2_batch(
                 transcript,
@@ -274,6 +292,7 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
                 n_cycle_vars=n_cycle_vars,
                 log_ram_k=log_ram_k,
                 accesses=accesses,
+                sound=sound,
                 initial_ram=getattr(emulator, "initial_memory", {}),
                 final_ram=final_ram,
                 layout=emulator.device.layout,
@@ -337,14 +356,97 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
                 getattr(emulator, "initial_memory", {}),
                 emulator.device.layout.lowest_address(),
                 conv.stage2_batch, conv.stage3,
-                n_cycle_vars, log_ram_k, backend=backend, device=device)
+                n_cycle_vars, log_ram_k, sound=sound,
+                backend=backend, device=device)
         conv.proof.stage4_sumcheck = SIP(conv.stage4.compressed_polys)
         _insert_stage4_claims(conv.proof.opening_claims, conv.stage4)
 
-        # Compat: the reference emits zero sumcheck proofs + zero claims
-        # (proof_converter.zig:2628-2683); no transcript absorption.
-        _add_zero_stages(conv.proof, n_cycle_vars, log_k_chunk=4)
+        if sound and stages >= 5:
+            # Sound mode: the REAL stage 5-7 protocols behind the
+            # reference's zero-proof placeholders
+            # (proof_converter.zig:2628-2683): RegistersValEvaluation,
+            # RamRa one-hot virtualization + Hamming booleanity, per-chunk
+            # Booleanity + Hamming-weight linkage.
+            from .stage5 import prove_stage5
+            from .stage67 import prove_stage6, prove_stage7
+
+            start_address = emulator.device.layout.lowest_address()
+            with metrics.stage("stage5"):
+                conv.stage5 = prove_stage5(transcript, padded_steps,
+                                           conv.stage4, n_cycle_vars)
+            conv.proof.stage5_sumcheck = SIP(conv.stage5.compressed_polys)
+            with metrics.stage("stage6"):
+                # the stage-2 cycle point is r_spartan (reversed stage-1
+                # challenges), the BE eq weights both RWC and RAF use
+                conv.stage6 = prove_stage6(
+                    transcript, padded_steps, conv.stage2_batch.challenges,
+                    r_spartan, n_cycle_vars, log_ram_k,
+                    conv.stage2_batch.rwc_ra_claim,
+                    conv.stage2_batch.raf_final_claim, start_address)
+            conv.proof.stage6_sumcheck = SIP(conv.stage6.compressed_polys)
+            with metrics.stage("stage7"):
+                conv.stage7 = prove_stage7(
+                    transcript, padded_steps, conv.stage6.challenges,
+                    n_cycle_vars, log_ram_k, conv.stage6.hw_claim,
+                    start_address)
+            conv.proof.stage7_sumcheck = SIP(conv.stage7.compressed_polys)
+            _insert_sound_stage567_claims(conv.proof.opening_claims, conv)
+            if bc_index is not None:
+                # Stages 8-12: the sound lookups + bytecode read arguments
+                # (zkvm/sound_lookups.py) — real protocols behind the
+                # reference's LookupsRAF/BytecodeRAF zero placeholders.
+                from .sound_lookups import (prove_sound_lookups,
+                                            serialize_sound_lookups)
+
+                rc1_le = list(conv.stage1.challenges[1:])
+                with metrics.stage("stages8_12"):
+                    conv.sound_lookups = prove_sound_lookups(
+                        transcript, padded_steps, bc_index,
+                        conv.input_evals, rc1_le, n_cycle_vars)
+                conv.proof.lookups_ext = serialize_sound_lookups(
+                    conv.sound_lookups)
+        else:
+            # Compat: the reference emits zero sumcheck proofs + zero claims
+            # (proof_converter.zig:2628-2683); no transcript absorption.
+            _add_zero_stages(conv.proof, n_cycle_vars, log_k_chunk=4,
+                             sound=sound)
     return conv
+
+
+from collections import namedtuple
+
+_WitnessAccess = namedtuple("_WitnessAccess", "op address pre_value post_value timestamp")
+
+
+def _witness_accesses(padded_steps) -> list:
+    """Sound-mode access list: derived directly from the trace steps so every
+    access has a witness row (RamAddress/RamReadValue/RamWriteValue columns),
+    making the RAF/RWC input claims equal their true sums. This includes
+    I/O-region stores (e.g. the guest's termination write), which the
+    emulator routes to the JoltDevice rather than the RAM trace.
+
+    Sound mode models RAM as aligned 8-byte word slots (the Jolt doubleword
+    RAM model — reference src/zkvm/ram/mod.zig word addressing), so every
+    traced RAM op must be an aligned ld/sd. Sub-word ops (lw/lb/sh/...)
+    would need virtual-sequence expansion (LD + shift/mask) to be provable;
+    we reject them loudly at prove time instead of emitting a proof whose
+    stage-2 output check cannot verify."""
+    out = []
+    for t, s in enumerate(padded_steps):
+        if s.is_noop or s.memory_addr is None:
+            continue
+        f3 = (s.instruction >> 12) & 0x7
+        if (f3 & 0x3) != 0x3 or s.memory_addr % 8:
+            raise ValueError(
+                f"sound mode requires aligned 8-byte RAM accesses (ld/sd): "
+                f"cycle {t} pc=0x{s.pc:x} uses width {1 << (f3 & 0x3)} at "
+                f"addr 0x{s.memory_addr:x}; rebuild the guest with "
+                f"doubleword loads/stores (sub-word virtual sequences are "
+                f"not implemented)")
+        out.append(_WitnessAccess(
+            "write" if s.is_memory_write else "read",
+            s.memory_addr, s.memory_pre_value or 0, s.memory_value or 0, t))
+    return out
 
 
 def _insert_stage2_claims(claims: OpeningClaims, b) -> None:
@@ -419,8 +521,28 @@ def _insert_stage4_claims(claims: OpeningClaims, s4) -> None:
     claims.insert(OpeningId.virtual(V("RamRa"), S.RamValFinalEvaluation), s4.val_final_openings["wa"])
 
 
-def _add_zero_stages(proof: JoltProof, n_cycle_vars: int,
-                     log_k_chunk: int) -> None:
+def _insert_sound_stage567_claims(claims: OpeningClaims, conv) -> None:
+    """Sound-mode stage 5-7 opening claims. The committed ids (RdInc at the
+    stage-5 point, one-hot RamRa chunks at the stage-6/7 points) feed the
+    PCS batch opening; the virtual ids (RdWa, RamHammingWeight) are the
+    protocol's terminal virtual claims."""
+    from .jolt_types import CommittedPolynomial as CP
+
+    V, S = VirtualPolynomial.named, SumcheckId
+    s5, s6, s7 = conv.stage5, conv.stage6, conv.stage7
+    claims.insert(OpeningId.virtual(V("RdWa"), S.RegistersValEvaluation), s5.wa_claim)
+    claims.insert(OpeningId.committed(CP(CP.RD_INC), S.RegistersValEvaluation), s5.inc_claim)
+    for d, v in enumerate(s6.oh_rwc_claims):
+        claims.insert(OpeningId.committed(CP(CP.RAM_RA, d), S.RamReadWriteChecking), v)
+    for d, v in enumerate(s6.oh_raf_claims):
+        claims.insert(OpeningId.committed(CP(CP.RAM_RA, d), S.RamRafEvaluation), v)
+    claims.insert(OpeningId.virtual(V("RamHammingWeight"), S.RamHammingBooleanity), s6.hw_claim)
+    for d, v in enumerate(s7.oh_claims):
+        claims.insert(OpeningId.committed(CP(CP.RAM_RA, d), S.Booleanity), v)
+
+
+def _add_zero_stages(proof: JoltProof, n_cycle_vars: int, log_k_chunk: int,
+                     sound: bool = False) -> None:
     from .jolt_types import CommittedPolynomial as CP
 
     V, C, S = VirtualPolynomial.named, CP, SumcheckId
@@ -433,12 +555,14 @@ def _add_zero_stages(proof: JoltProof, n_cycle_vars: int,
     claims.insert(OpeningId.virtual(V("RdWa"), S.RegistersValEvaluation), 0)
     claims.insert(OpeningId.committed(C(C.RD_INC), S.RegistersValEvaluation), 0)
     claims.insert(OpeningId.virtual(V("RamRa"), S.RamRaClaimReduction), 0)
-    # The reference's stage-5 schedule overwrites the stage-2 RAF claim
-    # with 0 (proof_converter.zig:2649-2651) — the absorbed value becomes
-    # unrecoverable from the serialized proof, which breaks full transcript
-    # replay (the root cause of the reference's unfinished
-    # cross-verification).
-    claims.insert(OpeningId.virtual(V("RamRa"), S.RamRafEvaluation), 0)
+    if not sound:
+        # The reference's stage-5 schedule overwrites the stage-2 RAF claim
+        # with 0 (proof_converter.zig:2649-2651) — the absorbed value becomes
+        # unrecoverable from the serialized proof, which breaks full
+        # transcript replay (the root cause of the reference's unfinished
+        # cross-verification). Sound mode keeps the real claim so the
+        # verifier can replay end-to-end.
+        claims.insert(OpeningId.virtual(V("RamRa"), S.RamRafEvaluation), 0)
     zero_proof(proof.stage6_sumcheck, n_cycle_vars)
     claims.insert(OpeningId.virtual(V("RamHammingWeight"), S.Booleanity), 0)
     claims.insert(OpeningId.virtual(V("RamHammingWeight"), S.RamHammingBooleanity), 0)

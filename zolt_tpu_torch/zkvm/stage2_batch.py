@@ -199,20 +199,32 @@ class ProductVirtualRemainderProver:
 
 class RafEvaluationProver:
     def __init__(self, accesses, r_cycle: list[int], start_address: int,
-                 log_k: int, initial_claim: int):
+                 log_k: int, initial_claim: int, sound: bool = False):
         k_size = 1 << log_k
         ra = [0] * k_size
         self.ra = ra
-        # the reference's LE-by-access-index table (raf_checking.zig
-        # computeEqEvals)
-        n_acc = len(accesses)
-        log_t = max(0, (n_acc - 1).bit_length()) if n_acc > 1 else 0
-        eq = _eq_table_le(r_cycle, log_t)
-        for j, a in enumerate(accesses):
-            if a.address >= start_address:
-                k = (a.address - start_address) // 8
-                if k < k_size:
-                    self.ra[k] = (self.ra[k] + (eq[j] if j < len(eq) else 0)) % P
+        if sound:
+            # Sound mode: ra(k) = Σ_cycles eq_BE(r_cycle, cycle)·[cycle
+            # accessed slot k] — the aggregation whose Σ_k ra(k)·unmap(k)
+            # equals the RamAddress opening claim, making the verifier's
+            # final check ra_claim·unmap(r) exact. (The reference-compat
+            # mode reproduces the reference's LE-by-access-index table,
+            # raf_checking.zig computeEqEvals.)
+            eq = _eq_table_be(r_cycle)
+            for a in accesses:
+                if a.address >= start_address and a.timestamp < len(eq):
+                    k = (a.address - start_address) // 8
+                    if k < k_size:
+                        self.ra[k] = (self.ra[k] + eq[a.timestamp]) % P
+        else:
+            n_acc = len(accesses)
+            log_t = max(0, (n_acc - 1).bit_length()) if n_acc > 1 else 0
+            eq = _eq_table_le(r_cycle, log_t)
+            for j, a in enumerate(accesses):
+                if a.address >= start_address:
+                    k = (a.address - start_address) // 8
+                    if k < k_size:
+                        self.ra[k] = (self.ra[k] + (eq[j] if j < len(eq) else 0)) % P
         from ..native.frvec import FrVec
 
         self.ra = FrVec.from_ints(ra)
@@ -586,6 +598,232 @@ class RamReadWriteCheckingProver:
 
 
 # ---------------------------------------------------------------------------
+# Instance 2 (sound mode): honest RAM read/write checking
+# ---------------------------------------------------------------------------
+
+class SoundRamReadWriteCheckingProver:
+    """Honest RWC prover for sound mode (address-first schedule).
+
+    Proves  rv + γ·wv  =  Σ_{k,j} eq(r_cycle,j)·Ra(k,j)·((1+γ)·Val(k,j) + γ·Inc(j))
+    with Val(k,j) = value of word k *before* cycle j, Ra one-hot at the
+    accessed word, Inc(j) the write delta. Unlike the reference's phase-interleaved
+    sparse machinery (ram/read_write_checking.zig, reproduced bit-exactly in
+    RamReadWriteCheckingProver above for compat mode), every round polynomial
+    here is computed from the data — s1 equals claim − s0 *because the data
+    sums correctly*, the final claim equals
+        eq_bound · ra_bound · ((1+γ)·val_bound + γ·inc_bound)
+    and the emitted opening claims ARE those bound MLE values, so the verifier
+    can enforce the instance's final-output identity from public data alone.
+
+    Schedule: the first log_k batch rounds bind ADDRESS bits (low bit first),
+    the remaining n_cycle rounds bind CYCLE bits (low bit first). Encoded in
+    the proof as ReadWriteConfig.ram_rw_phase1_num_rounds == 0 so the generic
+    r_address/r_cycle bookkeeping (stage-4 + verifier) needs no special case.
+
+    Val stays implicit during address rounds: block folds are
+    background(val_init fold) + Σ_{touched k in block} lag(k)·(val_k(j)−init_k),
+    with per-touched-address value timelines — memory is O(K + T·touched),
+    never O(K·T).
+    """
+
+    def __init__(self, accesses, gamma: int, r_cycle: list[int], log_k: int,
+                 log_t: int, start_address: int, initial_claim: int,
+                 initial_ram: dict[int, int]):
+        self.gamma = gamma % P
+        self.log_k = log_k
+        self.log_t = log_t
+        self.round = 0
+        self.current_claim = initial_claim % P
+        K, T = 1 << log_k, 1 << log_t
+
+        self.eqv = _eq_table_be([c % P for c in r_cycle])
+        self.incv = [0] * T
+        self.bg = [0] * K            # val_init fold (dense over addresses)
+        init_word: dict[int, int] = {}
+        for addr, val in initial_ram.items():
+            if addr >= start_address:
+                k = (addr - start_address) // 8
+                if k < K:
+                    self.bg[k] = val % P
+                    init_word[k] = val % P
+
+        # Replay: per-cycle access + per-touched-word WRITE EVENTS. The
+        # bound val sum Σ_{k in block} lag[k]·(val_k(j)−init_k) is piecewise
+        # constant in j with one step per write, so each block keeps a
+        # sorted (cycle, prefix) event list; binding merges the two child
+        # lists with the (1−r)/r factors applied uniformly per child (every
+        # member of a child shares the same new lag factor). Memory and
+        # per-round work are O(#writes), never O(touched·T).
+        self.acc_k = [None] * T      # accessed word index per cycle
+        cur: dict[int, int] = dict(init_word)
+        # ev[c] = (cycles list asc, prefix sums list): Σ deltas with cycle<=j
+        self.ev: dict[int, tuple[list[int], list[int]]] = {}
+        raw_events: dict[int, list[tuple[int, int]]] = {}
+        acc_by_cycle = {}
+        for a in accesses:
+            if a.address < start_address:
+                continue
+            k = (a.address - start_address) // 8
+            if k >= K or a.timestamp >= T:
+                continue
+            acc_by_cycle[a.timestamp] = (k, a)
+        for j in range(T):
+            if j in acc_by_cycle:
+                k, a = acc_by_cycle[j]
+                self.acc_k[j] = k
+                if a.op == "write":
+                    old = cur.get(k, 0)
+                    self.incv[j] = (a.post_value - old) % P
+                    # val_k changes from cycle j+1 onward
+                    raw_events.setdefault(k, []).append(
+                        (j + 1, (a.post_value - old) % P))
+                    cur[k] = a.post_value
+        for k, evs in raw_events.items():
+            cycles, prefix = [], []
+            run = 0
+            for c, d in evs:           # already in ascending cycle order
+                run = (run + d) % P
+                cycles.append(c)
+                prefix.append(run)
+            self.ev[k] = (cycles, prefix)
+
+        self.rav = [1 if self.acc_k[j] is not None else 0 for j in range(T)]
+        self.valv: list[int] | None = None   # dense Val fold, built after phase A
+
+    # -- phase A helpers ---------------------------------------------------
+
+    def _block_sum(self, c: int, j: int) -> int:
+        """Σ_{k touched, k>>round == c} lag[k]·(val_k(j) − init_k)."""
+        ent = self.ev.get(c)
+        if ent is None:
+            return 0
+        import bisect
+
+        cycles, prefix = ent
+        i = bisect.bisect_right(cycles, j)
+        return prefix[i - 1] if i else 0
+
+    def _val_bound(self, c: int, j: int, blocks=None) -> int:
+        return (self.bg[c] + self._block_sum(c, j)) % P
+
+    def round_evals(self) -> list[int]:
+        g = self.gamma
+        if self.round < self.log_k:
+            blocks = None
+            b = self.round
+            s = [0, 0, 0, 0]
+            for j in range(1 << self.log_t):
+                k = self.acc_k[j]
+                if k is None or self.rav[j] == 0:
+                    continue
+                m = k >> b
+                mp, parity = m >> 1, m & 1
+                v_lo = self._val_bound(2 * mp, j, blocks)
+                v_hi = self._val_bound(2 * mp + 1, j, blocks)
+                dv = (v_hi - v_lo) % P
+                ra = self.rav[j]
+                eqj, incj = self.eqv[j], self.incv[j]
+                for t in range(4):
+                    ra_t = ra * (t if parity else (1 - t)) % P
+                    if ra_t == 0:
+                        continue
+                    inner = ((1 + g) * ((v_lo + t * dv) % P) + g * incj) % P
+                    s[t] = (s[t] + eqj * ra_t % P * inner) % P
+            return s
+        # phase B: dense cycle rounds over eq · ra · ((1+γ)·val + γ·inc)
+        if self.valv is None:
+            # sweep block 0's events across all cycles (O(T + #writes))
+            bg0 = self.bg[0]
+            ent = self.ev.get(0)
+            T = 1 << self.log_t
+            vals = [bg0] * T
+            if ent is not None:
+                cycles, prefix = ent
+                pos = 0
+                run = 0
+                for j in range(T):
+                    while pos < len(cycles) and cycles[pos] <= j:
+                        run = prefix[pos]
+                        pos += 1
+                    vals[j] = (bg0 + run) % P
+            self.valv = vals
+        n = len(self.eqv)
+        half = n // 2
+        s = [0, 0, 0, 0]
+        for i in range(half):
+            e0, e1 = self.eqv[2 * i], self.eqv[2 * i + 1]
+            r0, r1 = self.rav[2 * i], self.rav[2 * i + 1]
+            v0, v1 = self.valv[2 * i], self.valv[2 * i + 1]
+            i0, i1 = self.incv[2 * i], self.incv[2 * i + 1]
+            de, dr, dv, di = e1 - e0, r1 - r0, v1 - v0, i1 - i0
+            for t in range(4):
+                ra_t = (r0 + t * dr) % P
+                if ra_t == 0:
+                    continue
+                inner = ((1 + g) * ((v0 + t * dv) % P) + g * ((i0 + t * di) % P)) % P
+                s[t] = (s[t] + (e0 + t * de) % P * ra_t % P * inner) % P
+        return s
+
+    def bind(self, r: int) -> None:
+        if self.round < self.log_k:
+            b = self.round
+            half = len(self.bg) // 2
+            self.bg = [(self.bg[2 * i] + r * (self.bg[2 * i + 1] - self.bg[2 * i])) % P
+                       for i in range(half)]
+            for j in range(1 << self.log_t):
+                k = self.acc_k[j]
+                if k is not None:
+                    parity = (k >> b) & 1
+                    self.rav[j] = self.rav[j] * ((r if parity else (1 - r)) % P) % P
+            # merge child event lists into parents with the child's lag factor
+            omr = (1 - r) % P
+            new_ev: dict[int, tuple[list[int], list[int]]] = {}
+            parents = {c >> 1 for c in self.ev}
+            for p in parents:
+                lo = self.ev.get(2 * p)
+                hi = self.ev.get(2 * p + 1)
+                # reconstruct per-event deltas from prefixes, scale, merge
+                def _deltas(ent, scale):
+                    if ent is None:
+                        return []
+                    cs, pref = ent
+                    out = []
+                    prev = 0
+                    for c, pv in zip(cs, pref):
+                        out.append((c, (pv - prev) * scale % P))
+                        prev = pv
+                    return out
+                merged = sorted(_deltas(lo, omr) + _deltas(hi, r % P))
+                run = 0
+                cyc_out: list[int] = []
+                pref_out: list[int] = []
+                for c, d in merged:
+                    run = (run + d) % P
+                    if cyc_out and cyc_out[-1] == c:
+                        pref_out[-1] = run
+                    else:
+                        cyc_out.append(c)
+                        pref_out.append(run)
+                new_ev[p] = (cyc_out, pref_out)
+            self.ev = new_ev
+        else:
+            half = len(self.eqv) // 2
+            for arr in (self.eqv, self.rav, self.valv, self.incv):
+                for i in range(half):
+                    arr[i] = (arr[2 * i] + r * (arr[2 * i + 1] - arr[2 * i])) % P
+            del self.eqv[half:], self.rav[half:], self.valv[half:], self.incv[half:]
+        self.round += 1
+
+    def update_claim(self, evals4: list[int], r: int) -> None:
+        self.current_claim = _lagrange_eval_0123(evals4, r)
+
+    # -- honest final openings --------------------------------------------
+    def final_openings(self) -> dict[str, int]:
+        return {"ra": self.rav[0], "val": self.valv[0], "inc": self.incv[0],
+                "eq": self.eqv[0]}
+
+
+# ---------------------------------------------------------------------------
 # Instance 3: RamOutputCheck
 # ---------------------------------------------------------------------------
 
@@ -818,7 +1056,7 @@ def prove_stage2_batch(transcript, *, r0_stage2: int, uni_skip_claim_stage2: int
                        log_ram_k: int, accesses, initial_ram: dict[int, int],
                        final_ram: dict[int, int], layout, program_inputs: bytes,
                        program_outputs: bytes, is_panicking: bool,
-                       backend: str | None = None,
+                       sound: bool = False, backend: str | None = None,
                        device=None, dev_store=None) -> Stage2BatchResult:
     res = Stage2BatchResult()
     max_rounds = log_ram_k + n_cycle_vars
@@ -861,9 +1099,14 @@ def prove_stage2_batch(transcript, *, r0_stage2: int, uni_skip_claim_stage2: int
                                             dev_store=dev_store)
     output = OutputSumcheckProver(initial_ram, final_ram, r_address, layout,
                                   program_inputs, program_outputs, is_panicking)
-    rwc = RamReadWriteCheckingProver(accesses, gamma_rwc, tau[:n_cycle_vars], log_ram_k,
-                                     n_cycle_vars, n_cycle_vars // 2, lowest,
-                                     input_claims[2], initial_ram)
+    if sound:
+        rwc = SoundRamReadWriteCheckingProver(
+            accesses, gamma_rwc, tau[:n_cycle_vars], log_ram_k, n_cycle_vars,
+            lowest, input_claims[2], initial_ram)
+    else:
+        rwc = RamReadWriteCheckingProver(accesses, gamma_rwc, tau[:n_cycle_vars], log_ram_k,
+                                         n_cycle_vars, n_cycle_vars // 2, lowest,
+                                         input_claims[2], initial_ram)
     raf = None
     instr = None
 
@@ -873,7 +1116,8 @@ def prove_stage2_batch(transcript, *, r0_stage2: int, uni_skip_claim_stage2: int
         # lazy instance creation must precede the prefetch pass
         if raf is None and rnd == max_rounds - rounds_per[1]:
             raf = RafEvaluationProver(accesses, tau[:n_cycle_vars], lowest,
-                                      log_ram_k, input_claims[1])
+                                      log_ram_k, input_claims[1],
+                                      sound=sound)
         if instr is None and rnd == max_rounds - rounds_per[4]:
             instr = InstructionLookupsProver(
                 gamma_instr, r_spartan, n_cycle_vars,
@@ -964,6 +1208,31 @@ def prove_stage2_batch(transcript, *, r0_stage2: int, uni_skip_claim_stage2: int
     res.factor_evals = [eqv.inner(f) for f in factors]
 
     res.raf_final_claim = raf.ra.first() if raf is not None else 0
+
+    if sound:
+        # Honest bound MLE values: the verifier recomputes the instance's
+        # final claim as eq_b · ra · ((1+γ)·val + γ·inc) from these.
+        op = rwc.final_openings()
+        res.rwc_ra_claim = op["ra"]
+        res.rwc_val_claim = op["val"]
+        res.rwc_inc_claim = op["inc"]
+        res.output_val_final_claim = output.val_final.first()
+        res.output_val_init_claim = output.val_init.first()
+        if instr is not None:
+            (res.instr_lookup_output_claim, res.instr_left_operand_claim,
+             res.instr_right_operand_claim) = instr.final_openings()
+        for v in res.factor_evals:
+            transcript.append_scalar(v)
+        transcript.append_scalar(res.raf_final_claim)
+        transcript.append_scalar(res.rwc_val_claim)
+        transcript.append_scalar(res.rwc_ra_claim)
+        transcript.append_scalar(res.rwc_inc_claim)
+        transcript.append_scalar(res.output_val_final_claim)
+        transcript.append_scalar(res.output_val_init_claim)
+        transcript.append_scalar(res.instr_lookup_output_claim)
+        transcript.append_scalar(res.instr_left_operand_claim)
+        transcript.append_scalar(res.instr_right_operand_claim)
+        return res
 
     # RWC opening claims (read_write_checking.zig getOpeningClaims)
     phase1 = n_cycle_vars // 2

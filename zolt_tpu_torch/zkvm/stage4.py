@@ -736,17 +736,24 @@ class Stage4Result:
 def prove_stage4(transcript, padded_steps, accesses, initial_ram,
                  start_address: int, stage2_res, stage3_res,
                  n_cycle_vars: int, log_ram_k: int,
-                 backend: str | None = None,
+                 sound: bool = False, backend: str | None = None,
                  device=None) -> Stage4Result:
     """Stage-4 batched sumcheck, bit-exact transcript flow
-    (reference src/zkvm/proof_converter.zig:1605-2628)."""
+    (reference src/zkvm/proof_converter.zig:1605-2628).
+
+    sound=True follows the sound stage-2 schedule: the RAM RWC bound its
+    address bits over the FIRST log_ram_k batch challenges (phase1 == 0,
+    recorded in the proof's ReadWriteConfig), so val_eval's wa/LT points and
+    val_final's wa point (the OutputSumcheck's bound point — the LAST
+    log_ram_k challenges) line up with the emitted stage-2 claims and the
+    batch input claims equal the instances' true sums."""
     res = Stage4Result()
     max_rounds = LOG_K + n_cycle_vars
     gamma = transcript.challenge_scalar_full()
     res.gamma = gamma
 
     # -- challenge-point bookkeeping from stage 2 (RWC phase structure) ----
-    phase1 = n_cycle_vars // 2
+    phase1 = 0 if sound else n_cycle_vars // 2
     phase2 = log_ram_k
     phase3_cycle_len = n_cycle_vars - phase1
     phase3_addr_len = log_ram_k - phase2
@@ -812,8 +819,10 @@ def prove_stage4(transcript, padded_steps, accesses, initial_ram,
                                    1 << log_ram_k, r_address_le, r_cycle_le,
                                    start_address, backend=backend,
                                    device=device)
-    # the reference's (rigged) first-log_k point
-    r_addr_vf = [ch2[i] for i in range(log_ram_k)]
+    # compat mode reproduces the reference's (rigged) first-log_k point;
+    # sound mode uses the OutputSumcheck's actual bound point so the input
+    # claim val_final_claim − init_eval equals the instance's true sum
+    r_addr_vf = ch2[out_start:] if sound else [ch2[i] for i in range(log_ram_k)]
     val_final = ValFinalProver(accesses, initial_ram, trace_len,
                                r_addr_vf, start_address,
                                backend=backend, device=device)
