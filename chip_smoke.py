@@ -46,21 +46,47 @@ Phases, one status line each; the first failure ends the run non-zero:
    also under cProfile); the host-tier prove (backend="host"); the device prove at
    the default tail. The three unprofiled proofs must be equal, and at
    T = 2^16 their sha256 must equal the digest the JAX package (zolt_tpu)
-   computes for the same guest on the CPU. Every kernel must have
-   launched during the tail-0 device prove. Each kernel's path bound is
-   the bound of the bytes and IMADs its wrapper counted over that prove.
+   computes for the same guest on the CPU. Every kernel of PROVE_PATH
+   (the Fr kernels and the row MSM, which commits the small-scalar polys)
+   must have launched during the tail-0 device prove, and none during
+   the host-tier prove. Each Fr kernel's path bound is the bound of the
+   bytes and IMADs its wrapper counted over that prove.
 5. sound: the same guest with sound=True (stages 1-12 and the PCS batch
    opening): prove_jolt's defaults with the tail at 0, timed, with its
    peak device memory, its per-stage seconds (stage5, stage6, stage7,
    stages8_12, batch_opening beside the others) and the wrappers' launch
    and group counts for the whole prove and for its batch opening alone;
    then the host tier. The two proofs must be equal, and at T = 2^16 equal
-   the JAX package's sound digest. Every kernel must have launched in the
-   sound prove, and the fold and the k = 2 product evals in its batch
+   the JAX package's sound digest. Every kernel of PROVE_PATH must have
+   launched in the sound prove (none in the host-tier one), and the fold
+   and the k = 2 product evals in its batch
    opening, at no more than 16 groups a launch. With --profile, one more
    tail-0 sound prove under torch.profiler (device busy, and the batch
    opening's device ms by its record_function range) and cProfile, written
    to PROFILE_sound.txt.
+
+Between phases 3 and 4, g1: the G1 kernels (csrc/g1.cu, rows_msm.cu,
+pippenger.cu) against their plain versions on the same CUDA tensors and
+the host C tier, timed as in phase 3: A (pt_add, pt_double) on 2^16
+pairs, half of them edge cases, words equal; B (the row MSMs) at the
+sound shape (40 one-hot cubes of 2^20 in the 2^10 x 2^10 layout, one
+plane) and the compat shape (32 polys of 2^16 values below 16, 2^8 x
+2^8, four planes), affine rows equal to the plain version's and to
+`dory.row_commitments`; C and D (the Pippenger's bucket and window sums)
+in the Pippenger at n = 2^16 and 2^18 against the native C MSM, and
+against their plain versions at 2^16, with the host steps of a call
+timed; E (the scalars' digits from Fr Montgomery words) at 2^18 against
+its plain version and the host's digits, bytes equal. Kernel B's path
+bound is that of the work its wrapper counted in each prove. After
+phase 5:
+6. commit: the commitment phase alone (`commit_and_absorb`) in each mode
+   on the device tier and the host C tier in three alternating pairs, its
+   seconds split into the row MSMs and the pairings, the commitments
+   equal; a first device commit gives kernel B's work and device ms in
+   the phase alone.
+7. kzg: HyperKZG at 2^18 on the card: commit (of a tensor on the card),
+   open and verify, the commitment equal to the native C MSM; kernels C,
+   D and E must launch.
 
 The last three lines are the kernels' JSON, the nvidia-smi card line and
 the result JSON.
@@ -101,6 +127,27 @@ KERNELS = [
 ]
 
 
+# The G1 kernels: (name, source, the JAX device functions they replace).
+G1_KERNELS = [
+    ("g1_add_double", "zolt_tpu_torch/csrc/g1.cu",
+     "zolt_tpu/curve/device.py:58,74 (pt_double, pt_add)"),
+    ("row_plane_sums", "zolt_tpu_torch/csrc/rows_msm.cu",
+     "zolt_tpu/msm/rows_device.py:50,69 (_plane_sums, _horner_planes)"),
+    ("bucket_accumulate", "zolt_tpu_torch/csrc/pippenger.cu",
+     "zolt_tpu/msm/pippenger.py:55 (_bucket_totals)"),
+    ("window_sums", "zolt_tpu_torch/csrc/pippenger.cu",
+     "zolt_tpu/msm/pippenger.py:95 (_window_sums)"),
+    ("scalar_digits", "zolt_tpu_torch/csrc/pippenger.cu",
+     "zolt_tpu/pcs/hyperkzg.py:50 and zolt_tpu/msm/pippenger.py:45 "
+     "(decode and _digits, on the host)"),
+]
+# The kernels a prove must launch on its device path.
+PROVE_PATH = ("fold", "product_evals_k2", "product_evals_k3", "gruen_round",
+              "row_plane_sums")
+# The kernels the HyperKZG commit and open must launch.
+KZG_PATH = ("bucket_accumulate", "window_sums", "scalar_digits")
+
+
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
@@ -132,9 +179,11 @@ def device_us(rows) -> float:
     return sum(e.self_device_time_total for e in rows)
 
 
-def device_ms(torch, fn, iters: int) -> float:
+def device_ms(torch, fn, iters: int, name: str | None = None) -> float:
     """Mean device milliseconds per call over `iters` calls: the kernels'
-    own time by torch.profiler, without the wrapper's host work."""
+    own time by torch.profiler, without the wrapper's host work; with
+    `name`, only the kernels whose name holds it (a G1 wrapper also runs
+    torch kernels that count its work)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -143,7 +192,8 @@ def device_ms(torch, fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return device_us(p.key_averages()) / 1e3 / iters
+    rows = [e for e in p.key_averages() if name is None or name in e.key]
+    return device_us(rows) / 1e3 / iters
 
 
 # The card's peaks for the bounds (H100 SXM, 700 W): HBM3 3.35 TB/s (the
@@ -164,15 +214,17 @@ def bound(nbytes: int, imads: int) -> tuple[float, str]:
 
 
 def timings(torch, stats: dict, name: str, kernel, plain, nbytes: int,
-            imads: int, shape: str, err: int) -> None:
+            imads: int, shape: str, err: int, plain_iters: int = 3,
+            phase: str = "kernels", device_name: str | None = None) -> None:
     """Record and print one kernel's call time (CUDA events), device time
-    (profiler), bound, and its plain version's call time, on the same
-    inputs."""
+    (profiler; of the kernels named `device_name` where given), bound, and
+    its plain version's call time, on the same inputs."""
     b_ms, b_by = bound(nbytes, imads)
     st = stats[name] = dict(max_abs_err=err, shape=shape,
                             ms=cuda_ms(torch, kernel, 50),
-                            device_ms=device_ms(torch, kernel, 50),
-                            plain_ms=cuda_ms(torch, plain, 3),
+                            device_ms=device_ms(torch, kernel, 50,
+                                                device_name),
+                            plain_ms=cuda_ms(torch, plain, plain_iters),
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     dev = (f"{st['device_ms']:.4f} ms on the device "
            f"({nbytes / st['device_ms'] / 1e6:.1f} GB/s of {nbytes} bytes, "
@@ -180,9 +232,9 @@ def timings(torch, stats: dict, name: str, kernel, plain, nbytes: int,
            f"{b_ms / st['device_ms'] * 100:.1f} % of it)"
            if st["device_ms"] else "device time not measured (the "
            "profiler saw no device events)")
-    say("kernels", f"{name} exact vs plain and the host tier at {shape}: "
-                   f"{st['ms']:.4f} ms per call, {dev}; plain "
-                   f"{st['plain_ms']:.3f} ms")
+    say(phase, f"{name} exact vs plain and the host tier at {shape}: "
+               f"{st['ms']:.4f} ms per call, {dev}; plain "
+               f"{st['plain_ms']:.3f} ms")
 
 
 def rand_tables(torch, gen, k: int, n: int, live: int):
@@ -595,6 +647,419 @@ def schedule_sweep(torch, gen, stats: dict) -> None:
         evals.SPLIT_MAX_PAIRS = chosen
 
 
+# ---------------------------------------------------------------------------
+# G1: kernels A-D, the commitments' two tiers, HyperKZG
+# ---------------------------------------------------------------------------
+
+def g1_edge_pairs(n: int, seed: int):
+    """n pairs of Jacobian points as CPU tensors of Fp Montgomery words,
+    each with a random Z, drawn from 256 multiples of the generator: about
+    half are edge cases (identity + P, P + identity, identity + identity,
+    P + P with another Z and with the same Z, P + (−P)), the rest generic."""
+    import numpy as np
+
+    from zolt_tpu_torch.curve import host
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.field.params import FP
+
+    rng = np.random.default_rng(seed)
+    base = host.random_points(256, seed=seed)
+    p = FP.p
+    kinds = rng.integers(0, 12, n)
+    ia, ib = rng.integers(0, 256, n), rng.integers(0, 256, n)
+    lam = [int(x) * int(y) % p or 1 for x, y in zip(
+        rng.integers(1, 1 << 62, 2 * n), rng.integers(1, 1 << 62, 2 * n))]
+    a, b = [], []
+    for t, (k, i, j) in enumerate(zip(kinds, ia, ib)):
+        P, Q = base[i], base[j]
+        a.append(None if k in (0, 2) else P)
+        b.append({0: Q, 1: None, 2: None, 3: P, 4: P,
+                  5: host.neg(P)}.get(int(k), Q))
+        if k == 4:
+            lam[n + t] = lam[t]
+
+    def jac(points, lams):
+        xs, ys, zs = [], [], []
+        for pt, lm in zip(points, lams):
+            if pt is None:
+                xs.append(0), ys.append(1), zs.append(0)
+            else:
+                xs.append(pt[0] * lm * lm % p)
+                ys.append(pt[1] * pow(lm, 3, p) % p)
+                zs.append(lm)
+        return tuple(limb.encode(v, limb.FP_C) for v in (xs, ys, zs))
+
+    return jac(a, lam[:n]), jac(b, lam[n:])
+
+
+def affine_of(pt) -> list:
+    """Jacobian word tensors (any device) -> host affine points."""
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.msm.rows_device import _batch_affine
+
+    return _batch_affine(*(limb.decode(c.reshape(-1, 8), limb.FP_C)
+                           for c in pt))
+
+
+def check_g1(torch, stats: dict):
+    """Kernels A-D against their plain versions and the host C tier.
+    Returns the KZG SRS of 2^18 powers, whose points the Pippenger takes
+    (and run_kzg reuses)."""
+    from zolt_tpu_torch.curve import device as dev
+    from zolt_tpu_torch.pcs import srs as srs_mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261017)
+    # A: 2^16 pairs, words equal to the plain version's
+    n = 1 << 16
+    t0 = time.perf_counter()
+    pa, pb = (tuple(c.cuda() for c in pt) for pt in g1_edge_pairs(n, 7))
+    say("g1", f"2^16 edge-case pairs made in {time.perf_counter() - t0:.2f} s")
+    err = max(max_abs(torch, g, w) for g, w in
+              zip(dev.pt_add(pa, pb) + dev.pt_double(pa),
+                  dev.pt_add_plain(pa, pb) + dev.pt_double_plain(pa)))
+    if err:
+        raise AssertionError(f"kernel A differs from its plain version: {err}")
+    timings(torch, stats, "g1_add_double", lambda: dev.pt_add(pa, pb),
+            lambda: dev.pt_add_plain(pa, pb), *dev.add_work(pa, pb),
+            "pt_add, 2^16 pairs, half edge cases", err, phase="g1",
+            device_name="g1_add_kernel")
+    timings(torch, stats, "g1_double", lambda: dev.pt_double(pa),
+            lambda: dev.pt_double_plain(pa), *dev.double_work(n),
+            "pt_double, 2^16 points", err, phase="g1",
+            device_name="g1_double_kernel")
+    check_rows(torch, gen, stats)
+    t0 = time.perf_counter()
+    kzg = srs_mod.insecure_setup(1 << KZG_LOG_N)
+    say("g1", f"KZG SRS of 2^{KZG_LOG_N} powers in "
+              f"{time.perf_counter() - t0:.2f} s (host, native C)")
+    check_pippenger(torch, stats, kzg)
+    return kzg
+
+
+# The sound prove's one-hot cubes at T = 2^16: about 40 polys of 2^20
+# entries, one 1 a cycle among 16 chunk values, in the 2^10 x 2^10 Dory
+# layout; compat: 32 chunk polys of 2^16 entries below 16, 2^8 x 2^8.
+SOUND_ROWS = (40, 1 << 10, 1 << 10, 1)
+COMPAT_ROWS = (32, 1 << 8, 1 << 8, 4)
+
+
+def check_rows(torch, gen, stats: dict) -> None:
+    """Kernel B at the sound and compat shapes: affine rows equal to the
+    host C tier's row MSMs (`dory.row_commitments`, as the host commit
+    computes them), and to the plain version's."""
+    import numpy as np
+
+    from zolt_tpu_torch.msm import rows_device
+    from zolt_tpu_torch.native.frvec import FrVec
+    from zolt_tpu_torch.pcs import dory
+
+    srs = dory.setup(20)
+    for name, (npoly, rows, cols, nplanes) in (("sound", SOUND_ROWS),
+                                                ("compat", COMPAT_ROWS)):
+        t0 = time.perf_counter()
+        eng = rows_device.get_engine(srs, cols, "cuda")
+        built = time.perf_counter() - t0
+        if nplanes == 1:
+            cyc = rows * cols // 16
+            k = torch.randint(0, 16, (npoly, cyc), device="cuda",
+                              generator=gen)
+            pos = k * cyc + torch.arange(cyc, device="cuda")
+            keep = torch.rand((npoly, cyc), device="cuda", generator=gen)
+            pos = torch.where(keep < 0.9, pos, 0)     # cycles with no 1
+            vals = torch.zeros((npoly, rows * cols), dtype=torch.uint8,
+                               device="cuda")
+            vals.scatter_(1, pos, 1)
+            vals[:, 0] = 0
+            vals[-1] = 0                               # an all-zero cube
+        else:
+            vals = torch.randint(0, 16, (npoly, rows * cols), device="cuda",
+                                 generator=gen).to(torch.uint8)
+            vals[-1] = 0
+        vals = vals.view(npoly, rows, cols)
+        got = rows_device.row_sums(vals, eng.table, eng.valid, nplanes)
+        plain = rows_device.row_sums_plain(vals, eng.table, eng.valid, nplanes)
+        aff = affine_of(got)
+        if aff != affine_of(plain):
+            raise AssertionError(f"kernel B differs from its plain version "
+                                 f"at the {name} shape")
+        t0 = time.perf_counter()
+        host_rows = []
+        for v in vals.reshape(npoly, -1).cpu().numpy():
+            if nplanes == 1:
+                ev = FrVec.indicator(v.size, np.nonzero(v)[0])
+                host_rows += dory.row_commitments(srs, ev, num_vars=20)
+            else:
+                ev = FrVec.from_u64_array(v.astype(np.uint64))
+                host_rows += dory.row_commitments(srs, ev)
+        host_s = time.perf_counter() - t0
+        if aff != host_rows:
+            raise AssertionError(f"kernel B differs from the host C tier's "
+                                 f"row MSMs at the {name} shape")
+        nz = rows_device.count_nonzero(vals, eng.valid, nplanes)
+        work = rows_device.work(nz, npoly * rows, cols, nplanes)
+        say("g1", f"row_plane_sums at the {name} shape ({npoly} polys x "
+                  f"{rows} rows x {cols} cols, {nplanes} planes; {nz} table "
+                  f"points added): affine equal to the plain version and "
+                  f"to the host C tier's row MSMs ({host_s:.3f} s on the "
+                  f"host); engine built and uploaded in {built:.3f} s")
+        timings(torch, stats, "row_plane_sums" + ("" if nplanes == 1 else
+                                                  "_compat"),
+                lambda: rows_device.row_sums(vals, eng.table, eng.valid,
+                                             nplanes),
+                lambda: rows_device.row_sums_plain(vals, eng.table, eng.valid,
+                                                   nplanes),
+                *work, f"{name}: {npoly} x {rows} x {cols}, {nplanes} planes",
+                0, plain_iters=1, phase="g1",
+                device_name=DEVICE_NAMES["row_plane_sums"])
+        stats["row_plane_sums" + ("" if nplanes == 1 else "_compat")][
+            "host_s"] = host_s
+
+
+KZG_LOG_N = 18
+# The Pippenger's sizes; kernels C and D are held to their plain versions
+# at the first.
+MSM_LOG_NS = (16, KZG_LOG_N)
+
+
+def msm_inputs(kzg, n: int, seed: int):
+    """The first n SRS powers with duplicates, a negation and the identity,
+    and random scalars with zeros and repeats."""
+    import numpy as np
+
+    from zolt_tpu_torch.curve import host
+    from zolt_tpu_torch.field.params import FR
+
+    rng = np.random.default_rng(seed)
+    pts = list(kzg.powers_g1[:n])
+    pts[1], pts[2], pts[5] = pts[0], host.neg(pts[3]), None
+    sc = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
+    sc[1], sc[2], sc[4], sc[6] = sc[0], sc[3], 0, 1
+    return pts, sc
+
+
+def check_pippenger(torch, stats: dict, kzg) -> None:
+    """Kernels C and D: the Pippenger at n = 2^16 and 2^18 equal to the
+    native C MSM; at 2^16 each kernel's buckets and window totals affine
+    equal to its plain version's. Times the host stages of a call. Kernel
+    E at 2^18: digits equal to its plain version's and the host's."""
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.native import g1_msm_native
+
+    for log_n in MSM_LOG_NS:
+        n = 1 << log_n
+        pts, sc = msm_inputs(kzg, n, log_n)
+        t0 = time.perf_counter()
+        want = g1_msm_native(pts, sc)
+        native_s = time.perf_counter() - t0
+        t = [time.perf_counter()]
+        ptab, valid = pippenger.affine_table(pts, "cuda")
+        t.append(time.perf_counter())
+        digits = pippenger.int_digits(sc, "cuda")
+        t.append(time.perf_counter())
+        ent, seg = pippenger.bucket_plan(digits)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        B = pippenger.bucket_sums(ent, seg, ptab, valid)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        W = pippenger.window_sums(*B)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        t0 = time.perf_counter()
+        got = pippenger.pippenger(pts, sc, "cuda")
+        call_s = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"the Pippenger differs from the native "
+                                 f"MSM at n = 2^{log_n}")
+        steps = dict(zip(("affine_table", "digits", "sort_plan",
+                          "bucket_accumulate", "window_sums"),
+                         (round(b - a, 4) for a, b in zip(t, t[1:]))))
+        say("g1", f"Pippenger at n = 2^{log_n} equal to the native C MSM "
+                  f"({native_s:.3f} s on the host): one call {call_s:.3f} "
+                  f"s; its steps (s, host clock) {steps}")
+        stats[f"pippenger_2^{log_n}"] = dict(call_s=call_s, native_s=native_s,
+                                             steps=steps)
+        if log_n == KZG_LOG_N:
+            words = limb.encode(sc, device="cuda")
+            got = pippenger.scalar_digits(words)
+            err = max_abs(torch, got, pippenger.scalar_digits_plain(words))
+            if err or not torch.equal(got, digits):
+                raise AssertionError("kernel E's digits differ from its plain "
+                                     "version's or the host's")
+            timings(torch, stats, "scalar_digits",
+                    lambda: pippenger.scalar_digits(words),
+                    lambda: pippenger.scalar_digits_plain(words),
+                    *pippenger.digits_work(n), f"n = 2^{log_n} scalars", err,
+                    phase="g1", device_name=DEVICE_NAMES["scalar_digits"])
+        if log_n != MSM_LOG_NS[0]:
+            continue
+        if affine_of(B) != affine_of(
+                pippenger.bucket_sums_plain(ent, seg, ptab, valid)):
+            raise AssertionError("kernel C differs from its plain version")
+        if affine_of(W) != affine_of(pippenger.window_sums_plain(*B)):
+            raise AssertionError("kernel D differs from its plain version")
+        timings(torch, stats, "bucket_accumulate",
+                lambda: pippenger.bucket_sums(ent, seg, ptab, valid),
+                lambda: pippenger.bucket_sums_plain(ent, seg, ptab, valid),
+                *pippenger.bucket_work(ent, seg, valid, n),
+                f"n = 2^{log_n}, 32 windows x 256 buckets", 0, plain_iters=1,
+                phase="g1", device_name=DEVICE_NAMES["bucket_accumulate"])
+        timings(torch, stats, "window_sums",
+                lambda: pippenger.window_sums(*B),
+                lambda: pippenger.window_sums_plain(*B),
+                *pippenger.window_work(32), "32 windows x 255 buckets", 0,
+                plain_iters=1, phase="g1",
+                device_name=DEVICE_NAMES["window_sums"])
+
+
+def run_kzg(torch, kzg) -> dict:
+    """The HyperKZG path on the card at 2^18: commit (a tensor of Fr
+    Montgomery words on the card: kernel E, then C and D), open (the fold
+    commitments of 2^17..2^1 points and the three witnesses, each a
+    Pippenger on the card) under torch.profiler, and verify; the
+    commitment equals the native C MSM's. Returns the launches of the
+    run, each kernel's path figures (the bound of the work its wrapper
+    counted, its device ms) and the seconds."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.field.params import FR
+    from zolt_tpu_torch.native import g1_msm_native
+    from zolt_tpu_torch.pcs import hyperkzg
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+
+    rng = np.random.default_rng(18)
+    n = 1 << KZG_LOG_N
+    evals = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
+    x = [int.from_bytes(rng.bytes(32), "little") % FR.p
+         for _ in range(KZG_LOG_N)]
+    words = limb.encode(evals, device="cuda")
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        com = hyperkzg.commit(kzg, words)
+        t1 = time.perf_counter()
+        proof = hyperkzg.open_at(kzg, evals, x, Blake2bTranscript(b"kzg"),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches, counts = read_launches()
+    ok = hyperkzg.verify(kzg, com, x, hyperkzg._mle_eval(evals, x), proof,
+                         Blake2bTranscript(b"kzg"))
+    t3 = time.perf_counter()
+    if not ok:
+        raise AssertionError("the HyperKZG proof at 2^18 does not verify")
+    if com != g1_msm_native(kzg.powers_g1, evals):
+        raise AssertionError("the HyperKZG commitment differs from the "
+                             "native C MSM")
+    idle = [k for k in KZG_PATH if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the HyperKZG path: "
+                             f"{idle}")
+    dev_ms = recorded_ms(prof, counts, KZG_PATH, "kzg")
+    figures = {}
+    for k in KZG_PATH:
+        c = counts[k]
+        b_ms, b_by = bound(c["bytes"], c["imads"])
+        figures[k] = dict(bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms[k])
+        say("kzg", f"{k} on the HyperKZG path: {c['launches']} launches, "
+                   f"{c['bytes']} bytes, {c['imads']} IMADs, bound "
+                   f"{b_ms:.4f} ms by {b_by}, device {ms_text(dev_ms[k])}")
+    secs = dict(commit=t1 - t0, open=t2 - t1, verify=t3 - t2)
+    say("kzg", f"HyperKZG at 2^{KZG_LOG_N} on the card: commit, open and "
+               f"verify pass, the commitment equals the native C MSM; "
+               f"seconds (commit and open under torch.profiler; the first "
+               f"commit builds the SRS's table) {secs}; launches {launches}")
+    return dict(launches=launches, seconds=secs, figures=figures)
+
+
+def commit_inputs(path: str, sound: bool) -> dict:
+    """The commitment phase's inputs, as prove_jolt makes them."""
+    from zolt_tpu_torch.vm import pad_with_noop, run_elf
+    from zolt_tpu_torch.zkvm import pipeline
+    from zolt_tpu_torch.zkvm.bytecode_tables import BytecodeIndex
+
+    emu = run_elf(path, expand_virtual=sound)
+    return dict(steps=pad_with_noop(list(emu.trace)),
+                bytecode_len=pipeline._bytecode_len(path),
+                memory_trace_len=len(emu.ram.trace), sound=sound,
+                log_ram_k=pipeline.LOG_RAM_K,
+                start_address=emu.device.layout.lowest_address(),
+                bc_index=BytecodeIndex.from_elf(path) if sound else None)
+
+
+def commit_pairs(torch, log_t: int, pairs: int = 3) -> dict:
+    """The commitment phase alone, on the device tier (kernel B) and on the
+    host C tier in alternating pairs, in both modes, with its seconds split
+    into the row MSMs and the pairings; the commitments must be equal. A
+    first device commit of each mode builds the engine and gives kernel
+    B's work in the phase (its wrapper's counters) and its device ms
+    (torch.profiler); it is not timed in the pairs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+    from zolt_tpu_torch.utils.log import metrics
+    from zolt_tpu_torch.zkvm.commitments import commit_and_absorb
+
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(log_t))
+        for mode, sound in (("compat", False), ("sound", True)):
+            kw = commit_inputs(path, sound)
+
+            def commit(device):
+                metrics.reset()
+                t0 = time.perf_counter()
+                phase = commit_and_absorb(Blake2bTranscript(b"Jolt"),
+                                          device=device, **kw)
+                torch.cuda.synchronize()
+                m = metrics.timings
+                return phase.commitments, dict(
+                    seconds=time.perf_counter() - t0,
+                    rows=m.get("commit_rows", 0.0),
+                    pairings=m.get("commit_pairings", 0.0),
+                    **{k: v for k, v in m.items() if k.startswith("row_msm")})
+
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                first, first_t = commit("cuda")
+            _, counts = read_launches()
+            work = counts["row_plane_sums"]
+            dev_ms = recorded_ms(prof, counts, ("row_plane_sums",),
+                                 "commit")
+            runs = []
+            for i in range(pairs):
+                for tier in (("cuda", None) if i % 2 == 0 else (None, "cuda")):
+                    coms, t = commit(tier)
+                    if coms != first:
+                        raise AssertionError(f"{mode} commitments differ "
+                                             f"between the tiers")
+                    runs.append(dict(tier="device" if tier else "host", **t))
+            b_ms, b_by = bound(work["bytes"], work["imads"])
+            out[mode] = dict(first_device=first_t, pairs=runs, work=work,
+                             bound_ms=b_ms, bound_by=b_by,
+                             device_ms=dev_ms["row_plane_sums"])
+            say("commit", f"{mode} commitments at T = 2^{log_t}: equal on "
+                          f"both tiers; first device commit (engine built) "
+                          f"{first_t}; kernel B in the phase: {work}, bound "
+                          f"{b_ms:.4f} ms by {b_by}, device "
+                          f"{ms_text(dev_ms['row_plane_sums'])}")
+            for r in runs:
+                steps = {k: round(v, 4) for k, v in r.items()
+                         if k.startswith("row_msm")}
+                say("commit", f"{mode} {r['tier']}: {r['seconds']:.4f} s "
+                              f"(row MSMs {r['rows']:.4f} s, pairings "
+                              f"{r['pairings']:.4f} s)"
+                              + (f"; the device row MSMs' steps {steps}"
+                                 if steps else ""))
+    return out
+
+
 def sum_loop_elf(log_t: int) -> bytes:
     """The bench's sum-loop guest (bench.py _sum_loop_trace) at T = 2^log_t."""
     from zolt_tpu_torch.vm import elf as elf_mod
@@ -673,11 +1138,18 @@ def profiled_prove(torch, path: str, out: str | None):
 
 def counters() -> dict:
     """The wrappers' counter dicts by kernel."""
+    from zolt_tpu_torch.curve import device as dev
     from zolt_tpu_torch.field import evals, fold, gruen
+    from zolt_tpu_torch.msm import pippenger, rows_device
 
     return {"fold": fold.fold_many.counts,
             "product_evals": evals.product_evals.counts,
-            "gruen_round": gruen.gruen_round.counts}
+            "gruen_round": gruen.gruen_round.counts,
+            "g1_add": dev.pt_add.counts, "g1_double": dev.pt_double.counts,
+            "row_plane_sums": rows_device.row_sums.counts,
+            "bucket_accumulate": pippenger.bucket_sums.counts,
+            "window_sums": pippenger.window_sums.counts,
+            "scalar_digits": pippenger.scalar_digits.counts}
 
 
 def reset_launches() -> None:
@@ -693,7 +1165,12 @@ def entry_launches(c: dict) -> dict:
     return {"fold": c["fold"]["launches"],
             "product_evals_k2": pe["launches_k2"],
             "product_evals_k3": pe["launches_k3"],
-            "gruen_round": c["gruen_round"]["launches"]}
+            "gruen_round": c["gruen_round"]["launches"],
+            "g1_add_double": (c["g1_add"]["launches"]
+                              + c["g1_double"]["launches"]),
+            **{k: c[k]["launches"] for k in ("row_plane_sums",
+                                             "bucket_accumulate",
+                                             "window_sums", "scalar_digits")}}
 
 
 def read_launches() -> tuple[dict, dict]:
@@ -706,7 +1183,34 @@ def read_launches() -> tuple[dict, dict]:
 # kernel -> the name torch.profiler shows for it on the device
 DEVICE_NAMES = {"fold": "fold_kernel", "product_evals": "product_evals_kernel",
                 "gruen_round": "gruen_round_kernel",
-                "reduce_partials": "zfr_reduce_partials"}
+                "reduce_partials": "zfr_reduce_partials",
+                "row_plane_sums": "row_msm_kernel",
+                "bucket_accumulate": "bucket_kernel",
+                "window_sums": "window_kernel",
+                "scalar_digits": "digits_kernel"}
+
+
+def recorded_ms(prof, counts: dict, names, phase: str) -> dict:
+    """Device ms by kernel from a profile, for each kernel whose launches
+    there the profiler recorded as many times as its wrapper counted them
+    (`counts`, as read_launches gives them); None, and a line saying so,
+    where it recorded another number. On some runs the profiler recorded
+    one of the two row-MSM launches of a commit phase, while the prove's
+    profile (profiled_prove) has always matched."""
+    on_dev, dev_ms = device_kernel_counts(prof.key_averages())
+    out = {}
+    for k in names:
+        want = counts[k]["launches"]
+        out[k] = dev_ms[k] if on_dev[k] == want else None
+        if out[k] is None:
+            say(phase, f"{k}: torch.profiler recorded {on_dev[k]} launches "
+                       f"of the {want} its wrapper made: device ms not "
+                       f"measured")
+    return out
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def device_kernel_counts(rows) -> tuple[dict, dict]:
@@ -783,15 +1287,16 @@ def device_event_ms(prof, span: str | None = None) -> dict | None:
 
 def path_figures(work: dict, dev_ms: dict | None, phase: str,
                  what: str) -> dict:
-    """Per kernel entry of the JSON line: launches, groups, bytes, IMADs
-    and the bound of that work (the wrappers' counters over a run), beside
+    """Per kernel entry of the JSON line on a prove's path (the Fr kernels
+    and kernel B): launches, groups, bytes, IMADs and the bound of that
+    work (the wrappers' counters over a run), beside
     the device ms the profiler saw (None: not measured, or no launch). One
     grouped launch can carry k = 2 and k = 3 groups, so the product evals'
     device ms is that of both k's launches, "device_ms_k2_k3", on each k's
     entry that launched. Printed one line an entry."""
     out = {}
     for name in ("fold", "product_evals_k2", "product_evals_k3",
-                 "gruen_round"):
+                 "gruen_round", "row_plane_sums"):
         kern, _, k = name.partition("_k")
         w = work[kern]
         s = f"_k{k}" if k else ""
@@ -850,13 +1355,19 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
                 prof = profiled_sound_prove(torch, path, profile + "_sound")
         finally:
             del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+        reset_launches()
         host, host_s, host_stages = timed_prove(torch, path, sound=True,
                                                 backend="host")
-        say("sound", f"sound host-tier prove: {host_s:.3f} s {host_stages}")
+        host_launches, _ = read_launches()
+        say("sound", f"sound host-tier prove: {host_s:.3f} s {host_stages}; "
+                     f"launches {host_launches}")
 
-    idle = [k for k, v in launches.items() if v <= 0]
+    idle = [k for k in PROVE_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched in the sound prove: {idle}")
+    if any(host_launches.values()):
+        raise AssertionError(f"the host-tier sound prove launched kernels: "
+                             f"{host_launches}")
     fb, pb = bo["fold"], bo["product_evals"]
     if not (fb["launches"] and pb["launches_k2"]):
         raise AssertionError(f"the batch opening launched no fold or no k = 2 "
@@ -954,7 +1465,7 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         on_dev, dev_ms, prof = profiled_prove(torch, path, profile)
         if on_dev["reduce_partials"]:
             raise AssertionError("a zfr_reduce_partials pass ran on the path")
-        for k in ("fold", "product_evals", "gruen_round"):
+        for k in ("fold", "product_evals", "gruen_round", "row_plane_sums"):
             if not (on_dev[k] == prof[k]["launches"]
                     == work[k]["launches"]):
                 raise AssertionError(
@@ -977,8 +1488,14 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         path_stats = path_figures(work, dev_ms, "slice", "the path")
         path_stats["peak_bytes"] = peak
 
+        reset_launches()
         host, host_s, host_stages = timed_prove(torch, path, backend="host")
-        say("slice", f"host-tier prove: {host_s:.3f} s {host_stages}")
+        host_launches, _ = read_launches()
+        say("slice", f"host-tier prove: {host_s:.3f} s {host_stages}; "
+                     f"launches {host_launches}")
+        if any(host_launches.values()):
+            raise AssertionError(f"the host-tier prove launched kernels: "
+                                 f"{host_launches}")
         del os.environ["ZOLT_TPU_DEVICE_TAIL"]
         dflt, dflt_s, dflt_stages = timed_prove(torch, path)
         say("slice", f"device prove, default tail (8192): {dflt_s:.3f} s "
@@ -999,10 +1516,60 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         say("slice", f"{len(dev)} proof bytes equal across the three "
                      f"proves; sha256 {digest} (no JAX digest for "
                      f"T = 2^{log_t})")
-    idle = [k for k, v in launches.items() if v <= 0]
+    idle = [k for k in PROVE_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     return launches, path_stats
+
+
+def kernels_json(stats: dict, launches: dict, path: dict,
+                 sound_launches: dict, sound: dict, commits: dict,
+                 kzg: dict) -> list:
+    """The kernels' entries of the JSON line."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms")
+    kernels = []
+    for name, src, rep in KERNELS:
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=launches[name],
+                     **{k: stats[name][k] for k in keys},
+                     sound_launches=sound_launches[name],
+                     batch_opening_launches=sound["bo_launches"][name])
+        for pre, figs in (("path", path), ("sound_path", sound["prove"]),
+                          ("batch_opening", sound["batch_opening"])):
+            entry.update({f"{pre}_{k}": v for k, v in figs[name].items()
+                          if k.startswith(("bound_ms", "device_ms"))})
+        if name + "_batch_opening" in stats:
+            bs = stats[name + "_batch_opening"]
+            entry["batch_opening_shape"] = {k: bs[k] for k in keys + ("shape",)}
+        kernels.append(entry)
+    for name, src, rep in G1_KERNELS:
+        on_prove = name in PROVE_PATH
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=(launches[name] if on_prove else
+                               kzg["launches"][name]),
+                     path=("prove_jolt (compat, tail 0)" if on_prove else
+                           "HyperKZG commit and open at 2^18"
+                           if name in KZG_PATH else
+                           "none: its device functions serve B-D"),
+                     **{k: stats[name][k] for k in keys},
+                     shape=stats[name]["shape"])
+        if name in KZG_PATH:
+            entry.update({f"path_{k}": v for k, v in
+                          kzg["figures"][name].items()
+                          if k in ("bound_ms", "device_ms")})
+        if on_prove:
+            entry.update(sound_launches=sound_launches[name],
+                         compat_shape={k: stats[name + "_compat"][k]
+                                       for k in keys + ("shape",)},
+                         commit_phase={m: {k: c[k] for k in (
+                             "bound_ms", "device_ms")}
+                             for m, c in commits.items()})
+            for pre, figs in (("path", path), ("sound_path", sound["prove"])):
+                entry.update({f"{pre}_{k}": v for k, v in figs[name].items()
+                              if k.startswith(("bound_ms", "device_ms"))})
+        kernels.append(entry)
+    return kernels
 
 
 def main() -> int:
@@ -1047,26 +1614,14 @@ def main() -> int:
 
     stats: dict = {}
     check_kernels(torch, stats)
+    kzg_srs = check_g1(torch, stats)
     launches, path = run_slice(torch, args.log_t, args.profile)
     sound_launches, sound = run_sound(torch, args.log_t, args.profile)
+    commits = commit_pairs(torch, args.log_t)
+    kzg = run_kzg(torch, kzg_srs)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms")
-    kernels = []
-    for name, src, rep in KERNELS:
-        entry = dict(name=name, route="cuda", source=src, replaces=rep,
-                     launches=launches[name],
-                     **{k: stats[name][k] for k in keys},
-                     sound_launches=sound_launches[name],
-                     batch_opening_launches=sound["bo_launches"][name])
-        for pre, figs in (("path", path), ("sound_path", sound["prove"]),
-                          ("batch_opening", sound["batch_opening"])):
-            entry.update({f"{pre}_{k}": v for k, v in figs[name].items()
-                          if k.startswith(("bound_ms", "device_ms"))})
-        if name + "_batch_opening" in stats:
-            bs = stats[name + "_batch_opening"]
-            entry["batch_opening_shape"] = {k: bs[k] for k in keys + ("shape",)}
-        kernels.append(entry)
+    kernels = kernels_json(stats, launches, path, sound_launches, sound,
+                           commits, kzg)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

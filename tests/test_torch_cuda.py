@@ -20,8 +20,11 @@ three modes (eval, fold then eval, fold), the eval-only pass in both
 schedules (a thread a pair, two threads a pair) on each side of the
 crossover, and each of its ways to weight by the eq factors; the fold and
 the k = 2 product evals at the sound batch opening's shapes (groups of
-2^20 and 2^16 entries, 16 a launch); and the sound prove at T = 2^10 on
-the GPU against the host tier's bytes. Every wrapper's launch counter must
+2^20 and 2^16 entries, 16 a launch); the G1 kernels A-D against their
+plain versions (A word for word, B-D in affine form, B and the Pippenger
+also against the native C tier) and HyperKZG on the Pippenger; and the
+sound prove at T = 2^10 on the GPU (its one-hot cubes through kernel B)
+against the host tier's bytes. Every wrapper's launch counter must
 go up by exactly one per launch. Tolerance: exact (equal words), since every
 value is a canonical field element.
 """
@@ -31,6 +34,7 @@ import torch
 
 from chip_smoke import MIXED_GROUPS
 from zolt_tpu_torch.field import evals, fold, gruen
+from zolt_tpu_torch.msm import rows_device
 
 pytestmark = pytest.mark.cuda
 
@@ -266,7 +270,151 @@ def test_sound_prove_on_cuda_equals_the_cpu_bytes(tmp_path, monkeypatch):
     host = prove_jolt(path, sound=True, backend="host")
     monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "0")
     before = evals.product_evals.counts["groups_k2"]
+    rows_before = rows_device.row_sums.counts["launches"]
     dev = prove_jolt(path, sound=True)
     assert evals.product_evals.counts["groups_k2"] > before
+    # the one-hot cubes (2^14 entries) take kernel B
+    assert rows_device.row_sums.counts["launches"] > rows_before
     assert (dev.conv.proof.serialize_with_dory()
             == host.conv.proof.serialize_with_dory())
+
+
+# ---------------------------------------------------------------------------
+# G1 kernels A-D (csrc/g1.cu, rows_msm.cu, pippenger.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 100, 4096])
+def test_g1_add_double_kernel_matches_plain(gen, n):
+    """Kernel A's words equal the plain versions' (the JAX formulas), edge
+    cases included."""
+    from chip_smoke import g1_edge_pairs
+    from zolt_tpu_torch.curve import device as dev
+
+    pa, pb = (tuple(c.cuda() for c in pt) for pt in g1_edge_pairs(n, n))
+    for got, want, op in ((dev.pt_add(pa, pb), dev.pt_add_plain(pa, pb),
+                           dev.pt_add),
+                          (dev.pt_double(pa), dev.pt_double_plain(pa),
+                           dev.pt_double)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        before = op.counts["launches"]
+        op(pa, pb) if op is dev.pt_add else op(pa)
+        assert op.counts["launches"] == before + 1
+    # a batch shape beyond one axis
+    sq = tuple(c[: n - n % 4].view(-1, 4, 8) for c in pa)
+    if sq[0].numel():
+        assert all(torch.equal(g, w) for g, w in
+                   zip(dev.pt_double(sq), dev.pt_double_plain(sq)))
+
+
+@pytest.mark.parametrize("cols,nplanes,rows", [(8, 1, 3), (64, 4, 5),
+                                               (256, 4, 64), (1024, 1, 33)])
+def test_row_msm_kernel_matches_plain_and_native(gen, cols, nplanes, rows):
+    """Kernel B, affine, against its plain version and the native C row
+    MSMs: partial matrices, an all-zero poly, random and one-hot scalars."""
+    import numpy as np
+
+    from chip_smoke import affine_of
+    from zolt_tpu_torch.msm import rows_device
+    from zolt_tpu_torch.native import g1_msm_rows_native
+    from zolt_tpu_torch.pcs import dory
+
+    srs = dory.setup(20)
+    rng = np.random.default_rng(cols + nplanes)
+    polys = [rng.integers(0, 1 << nplanes, size=cols * rows, dtype=np.uint8),
+             rng.integers(0, 1 << nplanes, size=cols * 2 + 3,
+                          dtype=np.uint8),
+             np.zeros(cols * rows, np.uint8)]
+    eng = rows_device.get_engine(srs, cols, "cuda")
+    before = rows_device.row_sums.counts["launches"]
+    got = eng.commit_rows(polys, nplanes)
+    assert rows_device.row_sums.counts["launches"] == before + 1
+    for v, g in zip(polys, got):
+        n = -(-len(v) // cols)
+        pad = np.zeros(n * cols, np.int64)
+        pad[:len(v)] = v
+        assert g == g1_msm_rows_native(
+            srs.g1_vec[:cols], [[int(s) for s in pad[r * cols:(r + 1) * cols]]
+                                for r in range(n)])
+    vals = torch.from_numpy(np.stack([np.resize(p, cols * rows)
+                                      for p in polys])).cuda().view(
+        len(polys), rows, cols)
+    before = dict(rows_device.row_sums.counts)
+    assert affine_of(rows_device.row_sums(vals, eng.table, eng.valid,
+                                          nplanes)) == affine_of(
+        rows_device.row_sums_plain(vals, eng.table, eng.valid, nplanes))
+    # the launch counts the work its data needs
+    nbytes, imads = rows_device.work(
+        rows_device.count_nonzero(vals, eng.valid, nplanes),
+        len(polys) * rows, cols, nplanes)
+    c = rows_device.row_sums.counts
+    assert (c["bytes"] - before["bytes"], c["imads"] - before["imads"]) == (
+        nbytes, imads)
+
+
+@pytest.mark.parametrize("n", [32, 1000, 1 << 14])
+def test_pippenger_kernels_match_plain_and_native(gen, n):
+    """Kernels C and D, affine, against their plain versions, and the
+    whole Pippenger against the native C MSM: duplicates, a negation, the
+    identity, zero scalars. Kernel E's digits equal its plain version's
+    and the host's."""
+    from chip_smoke import affine_of, msm_inputs
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.native import g1_msm_native
+    from zolt_tpu_torch.pcs import srs as srs_mod
+
+    kzg = srs_mod.insecure_setup(n)
+    pts, sc = msm_inputs(kzg, n, n)
+    ptab, valid = pippenger.affine_table(pts, "cuda")
+    digits = pippenger.int_digits(sc, "cuda")
+    ent, seg = pippenger.bucket_plan(digits)
+    before = (pippenger.bucket_sums.counts["launches"],
+              pippenger.window_sums.counts["launches"])
+    B = pippenger.bucket_sums(ent, seg, ptab, valid)
+    W = pippenger.window_sums(*B)
+    assert (pippenger.bucket_sums.counts["launches"],
+            pippenger.window_sums.counts["launches"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert affine_of(B) == affine_of(
+        pippenger.bucket_sums_plain(ent, seg, ptab, valid))
+    assert affine_of(W) == affine_of(pippenger.window_sums_plain(*B))
+    words = limb.encode(sc, device="cuda")
+    before = pippenger.scalar_digits.counts["launches"]
+    assert torch.equal(pippenger.scalar_digits(words), digits)
+    assert pippenger.scalar_digits.counts["launches"] == before + 1
+    assert torch.equal(pippenger.scalar_digits_plain(words), digits)
+    assert pippenger.pippenger(pts, sc, "cuda") == g1_msm_native(pts, sc)
+    assert pippenger.msm(pts, sc, device="cuda") == g1_msm_native(pts, sc)
+
+
+def test_hyperkzg_on_cuda_verifies(gen):
+    """HyperKZG at 2^15: the commit (its digits by kernel E), the 14 fold
+    commitments (2^14 points down to 2) and the three witnesses on the
+    Pippenger; the commitment equals the native MSM, the opening
+    verifies."""
+    import numpy as np
+
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.field.params import FR
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.native import g1_msm_native
+    from zolt_tpu_torch.pcs import hyperkzg
+    from zolt_tpu_torch.pcs import srs as srs_mod
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+
+    n = 1 << 15
+    kzg = srs_mod.insecure_setup(n)
+    rng = np.random.default_rng(15)
+    evals = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
+    x = [int(v) for v in rng.integers(1, 1 << 62, 15)]
+    before = (pippenger.bucket_sums.counts["launches"],
+              pippenger.scalar_digits.counts["launches"])
+    com = hyperkzg.commit(kzg, limb.encode(evals, device="cuda"))
+    assert com == g1_msm_native(kzg.powers_g1, evals)
+    proof = hyperkzg.open_at(kzg, evals, x, Blake2bTranscript(b"k"),
+                             device="cuda")
+    assert (pippenger.bucket_sums.counts["launches"],
+            pippenger.scalar_digits.counts["launches"]) == (before[0] + 18,
+                                                           before[1] + 1)
+    assert hyperkzg.verify(kzg, com, x, hyperkzg._mle_eval(evals, x), proof,
+                           Blake2bTranscript(b"k"))

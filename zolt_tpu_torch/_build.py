@@ -4,7 +4,8 @@ Two libraries are built on first use into `zolt_tpu_torch/_build/` (listed
 in .gitignore), never next to the sources:
 
 - the host C tier (native/*.c, built by native/__init__.py with `cc`);
-- the Hopper kernels (csrc/*.cu), built here with nvcc for sm_90a into one
+- the Hopper kernels (csrc/*.cu: the Fr sumcheck kernels and the G1
+  kernels), built here with nvcc for sm_90a into one
   shared library with a plain C interface and bound with ctypes. Its file
   name carries a hash of the sources, so an edited kernel is never served
   from a stale build.
@@ -24,7 +25,8 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_round.cu")
+KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_round.cu", "g1.cu",
+                  "rows_msm.cu", "pippenger.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -112,6 +114,19 @@ def kernels() -> KernelLib:
     lib.zfr_product_evals.restype = I
     lib.zfr_gruen_round.argtypes = [P, P]
     lib.zfr_gruen_round.restype = I
+    L = ctypes.c_longlong
+    lib.zg1_add.argtypes = [P] * 9 + [L, P]
+    lib.zg1_add.restype = I
+    lib.zg1_double.argtypes = [P] * 6 + [L, P]
+    lib.zg1_double.restype = I
+    lib.zg1_row_msm.argtypes = [P, L, I, I, P, P, P, P, P, P]
+    lib.zg1_row_msm.restype = I
+    lib.zg1_bucket_accumulate.argtypes = [P, P, I, P, P, I, P, P, P, P]
+    lib.zg1_bucket_accumulate.restype = I
+    lib.zg1_window_sums.argtypes = [P, P, P, I, P, P, P, P]
+    lib.zg1_window_sums.restype = I
+    lib.zg1_scalar_digits.argtypes = [P, L, P, P]
+    lib.zg1_scalar_digits.restype = I
     _KERNELS = KernelLib(lib, so, build_s, ptxas_log)
     return _KERNELS
 

@@ -1,4 +1,4 @@
-// Word products of BN254 Fr elements as PTX carry chains.
+// Word products of BN254 field elements as PTX carry chains.
 //
 // field.cuh multiplies with 64-bit C arithmetic, which the compiler lowers
 // to a product and separate adds and compares per word. Here each row of a
@@ -17,7 +17,9 @@
 //                      as an 832-bit integer;
 //   xwide_term(x, j)   the four Montgomery products whose sum mod p is
 //                      x*R^{-2}.
-// Their inputs are canonical (< p < 2^254).
+// Their inputs are canonical (< p < 2^254). add_p, sub_p and mont_mul
+// take the modulus as a template parameter (field.cuh: FrMod, the
+// default, or FpMod); the wide sums serve the Fr kernels only.
 #pragma once
 
 #include "field.cuh"
@@ -93,16 +95,18 @@ __device__ __forceinline__ void mad_hi_row(uint32_t (&t)[N], uint32_t a,
           "r"(b[5]), "r"(b[6]), "r"(b[7]));
 }
 
+template <class M>
 __device__ __forceinline__ void p_words(uint32_t (&p)[8]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = p_word(i);
+    for (int i = 0; i < 8; ++i) p[i] = M::word(i);
 }
 
 // a + b mod p: one carry chain for the sum, one borrow chain for sum − p,
 // then a select.
+template <class M = FrMod>
 __device__ __forceinline__ Fr add_p(const Fr& a, const Fr& b) {
     uint32_t s[8], c, d[8], keep, p[8];
-    p_words(p);
+    p_words<M>(p);
     asm("add.cc.u32 %0, %9, %17;\n\t"
         "addc.cc.u32 %1, %10, %18;\n\t"
         "addc.cc.u32 %2, %11, %19;\n\t"
@@ -148,9 +152,10 @@ __device__ __forceinline__ Fr pick(bool c, const Fr& a, const Fr& b) {
 }
 
 // a − b mod p: one borrow chain, then p added back under the borrow's mask.
+template <class M = FrMod>
 __device__ __forceinline__ Fr sub_p(const Fr& a, const Fr& b) {
     uint32_t d[8], mask, p[8];
-    p_words(p);
+    p_words<M>(p);
     asm("sub.cc.u32 %0, %9, %17;\n\t"
         "subc.cc.u32 %1, %10, %18;\n\t"
         "subc.cc.u32 %2, %11, %19;\n\t"
@@ -188,13 +193,13 @@ __device__ __forceinline__ Fr sub_p(const Fr& a, const Fr& b) {
 // CIOS row i: t += a_i*b, then t += m*p with m = t[0]*(-p^{-1}) so that
 // t[0] becomes 0, then t >>= 32. With t < 2p on entry every partial sum
 // stays below 2^288, so t[9] is never set and the result is < 2p.
-template <int I>
+template <int I, class M>
 __device__ __forceinline__ void cios_row(uint32_t (&t)[10], const Fr& a,
                                          const uint32_t (&b)[8],
                                          const uint32_t (&p)[8]) {
     mad_lo_row<0>(t, a.w[I], b);
     mad_hi_row<0>(t, a.w[I], b);
-    const uint32_t m = t[0] * P_INV;
+    const uint32_t m = t[0] * M::INV;
     mad_lo_row<0>(t, m, p);
     mad_hi_row<0>(t, m, p);
 #pragma unroll
@@ -203,23 +208,24 @@ __device__ __forceinline__ void cios_row(uint32_t (&t)[10], const Fr& a,
 }
 
 // a*b*R^{-1} mod p.
+template <class M = FrMod>
 __device__ __forceinline__ Fr mont_mul(const Fr& a, const Fr& b) {
     uint32_t t[10], p[8];
 #pragma unroll
     for (int i = 0; i < 10; ++i) t[i] = 0u;
-    p_words(p);
-    cios_row<0>(t, a, b.w, p);
-    cios_row<1>(t, a, b.w, p);
-    cios_row<2>(t, a, b.w, p);
-    cios_row<3>(t, a, b.w, p);
-    cios_row<4>(t, a, b.w, p);
-    cios_row<5>(t, a, b.w, p);
-    cios_row<6>(t, a, b.w, p);
-    cios_row<7>(t, a, b.w, p);
+    p_words<M>(p);
+    cios_row<0, M>(t, a, b.w, p);
+    cios_row<1, M>(t, a, b.w, p);
+    cios_row<2, M>(t, a, b.w, p);
+    cios_row<3, M>(t, a, b.w, p);
+    cios_row<4, M>(t, a, b.w, p);
+    cios_row<5, M>(t, a, b.w, p);
+    cios_row<6, M>(t, a, b.w, p);
+    cios_row<7, M>(t, a, b.w, p);
     Fr r;
 #pragma unroll
     for (int i = 0; i < 8; ++i) r.w[i] = t[i];
-    return cond_sub_p(r, t[8]);
+    return cond_sub_p<M>(r, t[8]);
 }
 
 // Words of an unreduced sum of products. A sum of m products of canonical

@@ -152,6 +152,16 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(cond.unsqueeze(-1), a, b)
 
 
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """Per element of the batch: all words zero."""
+    return (a == 0).all(dim=-1)
+
+
+def zeros(shape=(), device="cpu") -> torch.Tensor:
+    """Zero words shaped (*shape, 8)."""
+    return torch.zeros(tuple(shape) + (8,), dtype=torch.int32, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Host boundary: Python ints, JAX limbs, FrVec bytes
 # ---------------------------------------------------------------------------

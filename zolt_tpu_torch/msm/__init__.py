@@ -1,12 +1,14 @@
-"""G1 multi-scalar multiplication on the host C tier.
+"""G1 multi-scalar multiplication.
 
-The JAX package's `msm` (zolt_tpu/msm/pippenger.py) sends large MSMs to a
-device Pippenger; that path is not ported yet (ROADMAP Queue 1 item 9), so
-every MSM here is `curve.host.msm`: the native C runtime, or the pure-Python
-double-and-add where the native tier is absent. The result is the same
-affine point either way.
+`msm(points, scalars, device=None)` runs the device Pippenger
+(pippenger.py, kernels C, D and E) on `device` at every size when a device
+is given, so work asked of a device never moves to the host; with no
+device it stays on the host tiers (double-and-add, then the native C
+MSM), as Dory's callers call it. `rows_device` is the device row-MSM tier
+of the Dory commitments (kernel B). The result is the same affine point
+on every tier.
 """
 
-from ..curve.host import msm
+from .pippenger import msm, msm_oracle
 
-__all__ = ["msm"]
+__all__ = ["msm", "msm_oracle"]

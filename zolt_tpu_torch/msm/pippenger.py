@@ -1,0 +1,355 @@
+"""Pippenger MSM over BN254 G1 on the device, and the MSM router.
+
+Σ s_i · P_i with 8-bit windows (32 windows of a 256-bit scalar):
+
+  1. digits: (n, 32) bytes of the canonical scalars, window 0 the least
+     significant: from a tensor of Fr Montgomery words on its device
+     (`scalar_digits`: kernel E, csrc/pippenger.cu, one Montgomery
+     product a scalar), from host ints on the host (`int_digits`);
+  2. each (window, point) pair with a non-zero digit is an entry keyed by
+     its bucket window·256 + digit; torch.sort orders the entries by key and
+     searchsorted finds each bucket's segment (`bucket_plan`);
+  3. each bucket's points are summed (`bucket_sums`: kernel C,
+     csrc/pippenger.cu, a warp a bucket with mixed additions, N adds);
+  4. each window's Σ_b b·S_b by the running sum (`window_sums`: kernel D,
+     a thread a window);
+  5. the 32 window totals are combined on the host (tiny, exact).
+
+The JAX package (zolt_tpu/msm/pippenger.py) cuts the digits from host
+ints and does steps 3-4 with a Hillis–Steele segmented scan (N log N
+adds) and a lax.scan over buckets, in passes of 8 windows to bound the
+tiled copies of the points; here an entry names its point (entry mod n)
+and nothing is tiled. On CPU tensors the wrappers run their plain torch
+versions. Results are compared in affine form: a sum's Jacobian words
+depend on its order, its point does not.
+
+`msm(points, scalars, device)` runs the Pippenger on `device` at every
+size once a device is given: work asked of a device never moves to the
+host. With no device (Dory's callers) it stays on the host tiers: the
+double-and-add below HOST_MAX points, else the native C MSM. `srs_msm`
+takes a KZG SRS's affine table from a cache instead of building it a
+call (HyperKZG). `msm_mesh` (points sharded across GPUs) waits for the
+multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..curve import device as dev
+from ..curve import host as chost
+from ..field import limb
+from ..field.limb import FP_C, FR_C
+from ..field.params import FP, FR
+
+WINDOW_BITS = 8
+N_WINDOWS = 32  # 256 bits / 8
+BUCKETS = 1 << WINDOW_BITS
+HOST_MAX = 32            # host tiers: below, the double-and-add
+
+
+def _digits(scalars) -> np.ndarray:
+    """(n, 32) uint8 window digits of the scalars reduced mod r, window 0
+    = least significant byte."""
+    buf = b"".join((int(s) % FR.p).to_bytes(32, "little") for s in scalars)
+    return np.frombuffer(buf, dtype=np.uint8).reshape(len(scalars),
+                                                      N_WINDOWS)
+
+
+def affine_table(points, device="cpu"):
+    """Host affine points (or None) -> (n, 16) int32 Montgomery words, x
+    then y, and (n,) uint8 `valid`, 0 for the identity."""
+    xs, ys = [], []
+    for pt in points:
+        x, y = pt if pt is not None else (0, 0)
+        xs.append(FP.mont(x))
+        ys.append(FP.mont(y))
+    words = torch.cat([limb.ints_to_words(xs), limb.ints_to_words(ys)],
+                      dim=1)
+    valid = torch.tensor([pt is not None for pt in points], dtype=torch.uint8)
+    return words.to(device), valid.to(device)
+
+
+def bucket_plan(digits: torch.Tensor):
+    """(n, 32) uint8 digits -> the entries (window·n + point, int32) of
+    non-zero digits sorted by bucket (window·256 + digit), and each
+    bucket's segment offsets (32·256 + 1, int32)."""
+    n, nwin = digits.shape
+    d = digits.t().reshape(-1).to(torch.int64)
+    ents = torch.nonzero(d).reshape(-1)
+    keys = (ents // n) * BUCKETS + d[ents]
+    keys, order = torch.sort(keys)
+    want = torch.arange(nwin * BUCKETS + 1, device=d.device)
+    seg = torch.searchsorted(keys, want)
+    return ents[order].to(torch.int32), seg.to(torch.int32)
+
+
+def _segment_sums(key, x, y, z, nkeys: int):
+    """The Jacobian points of each run of equal keys (`key` sorted) summed
+    by rounds of pairwise additions of neighbours in a run -> three
+    (nkeys, 8) word tensors, the identity where a key has no point."""
+    d = key.device
+    while key.numel():
+        m = key.numel()
+        pos = torch.arange(m, device=d)
+        head = torch.ones(m, dtype=torch.bool, device=d)
+        head[1:] = key[1:] != key[:-1]
+        rank = pos - torch.cummax(torch.where(head, pos, 0), 0).values
+        nxt = torch.zeros(m, dtype=torch.bool, device=d)
+        nxt[:-1] = ~head[1:]
+        even = rank % 2 == 0
+        pair = even & nxt
+        if not bool(pair.any()):
+            break
+        lo = torch.nonzero(pair).reshape(-1)
+        s = dev.pt_add_plain((x[lo], y[lo], z[lo]),
+                             (x[lo + 1], y[lo + 1], z[lo + 1]))
+        x, y, z = x.clone(), y.clone(), z.clone()
+        x[lo], y[lo], z[lo] = s
+        ev = torch.nonzero(even).reshape(-1)
+        key, x, y, z = key[ev], x[ev], y[ev], z[ev]
+    out = [limb.zeros((nkeys,), d) for _ in range(3)]
+    for o, c in zip(out, (x, y, z)):
+        o[key] = c
+    return tuple(out)
+
+
+def _count(wrapper, nbytes: int, imads: int) -> None:
+    """A launch of `wrapper`'s kernel, with the bytes and IMADs its data
+    needs (`bucket_work`, `window_work`, `digits_work`)."""
+    c = wrapper.counts
+    c["launches"] += 1
+    c["bytes"] += nbytes
+    c["imads"] += imads
+
+
+def bucket_sums_plain(ent, seg, pts, valid):
+    """The torch version of kernel C (any device): each segment's points
+    summed by `_segment_sums`. Returns three (nbuckets, 8) Jacobian word
+    tensors."""
+    d = pts.device
+    nb, n = seg.numel() - 1, pts.shape[0]
+    key = torch.repeat_interleave(torch.arange(nb, device=d),
+                                  (seg[1:] - seg[:-1]).long())
+    idx = ent.long() % n
+    keep = valid[idx].bool()
+    key, idx = key[keep], idx[keep]
+    one = limb.encode(1, FP_C, d)
+    return _segment_sums(key, pts[idx, :8], pts[idx, 8:],
+                         one.expand(len(idx), 8), nb)
+
+
+def bucket_sums(ent: torch.Tensor, seg: torch.Tensor, pts: torch.Tensor,
+                valid: torch.Tensor):
+    """Each bucket's sum of points: kernel C on CUDA tensors,
+    `bucket_sums_plain` on CPU tensors."""
+    d = pts.device
+    if d.type == "cpu":
+        return bucket_sums_plain(ent, seg, pts, valid)
+    if d.type != "cuda" or any(t.device != d for t in (ent, seg, valid)):
+        raise ValueError(f"bucket_sums has no kernel for {d}")
+    if ent.dtype != torch.int32 or seg.dtype != torch.int32:
+        raise ValueError("bucket_sums takes int32 entries and offsets")
+    nb, n = seg.numel() - 1, pts.shape[0]
+    outs = [torch.empty((nb, 8), dtype=torch.int32, device=d)
+            for _ in range(3)]
+    with torch.cuda.device(d):
+        rc = _build.kernels().lib.zg1_bucket_accumulate(
+            ent.data_ptr(), seg.data_ptr(), nb, pts.contiguous().data_ptr(),
+            valid.data_ptr(), n, *[o.data_ptr() for o in outs],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"bucket_accumulate ({nb} buckets)")
+    _count(bucket_sums, *bucket_work(ent, seg, valid, n))
+    return tuple(outs)
+
+
+bucket_sums.counts = {"launches": 0, "bytes": 0, "imads": 0}
+
+
+def window_sums_plain(bx, by, bz):
+    """The torch version of kernel D (any device): Σ_b b·S_b per window as
+    Σ_k 2^k · T_k, T_k the sum of the non-empty buckets whose index has
+    bit k set (`_segment_sums` keyed by window and bit), then Horner over
+    the 8 bits. Kernel D's running sum reaches the same points in another
+    order."""
+    d = bx.device
+    nwin = bx.shape[0] // BUCKETS
+    src = torch.nonzero(~limb.is_zero(bz)).reshape(-1)
+    bit = torch.arange(WINDOW_BITS, device=d)
+    row, k = torch.nonzero(((src % BUCKETS).unsqueeze(1) >> bit) & 1,
+                           as_tuple=True)
+    ent = src[row]
+    key, order = torch.sort((ent // BUCKETS) * WINDOW_BITS + k, stable=True)
+    ent = ent[order]
+    T = [c.reshape(nwin, WINDOW_BITS, 8) for c in
+         _segment_sums(key, bx[ent], by[ent], bz[ent], nwin * WINDOW_BITS)]
+    acc = tuple(c[:, -1] for c in T)
+    for j in range(WINDOW_BITS - 2, -1, -1):
+        acc = dev.pt_add_plain(dev.pt_double_plain(acc),
+                               tuple(c[:, j] for c in T))
+    return acc
+
+
+def window_sums(bx: torch.Tensor, by: torch.Tensor, bz: torch.Tensor):
+    """Each window's Σ_b b·S_b: kernel D on CUDA tensors,
+    `window_sums_plain` on CPU tensors."""
+    d = bx.device
+    if d.type == "cpu":
+        return window_sums_plain(bx, by, bz)
+    if d.type != "cuda":
+        raise ValueError(f"window_sums has no kernel for {d}")
+    nwin = bx.shape[0] // BUCKETS
+    outs = [torch.empty((nwin, 8), dtype=torch.int32, device=d)
+            for _ in range(3)]
+    with torch.cuda.device(d):
+        rc = _build.kernels().lib.zg1_window_sums(
+            *[c.contiguous().data_ptr() for c in (bx, by, bz)], nwin,
+            *[o.data_ptr() for o in outs],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"window_sums ({nwin} windows)")
+    _count(window_sums, *window_work(nwin))
+    return tuple(outs)
+
+
+window_sums.counts = {"launches": 0, "bytes": 0, "imads": 0}
+
+
+def bucket_work(ent: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
+                n: int) -> tuple[int, int]:
+    """Bytes and IMADs kernel C needs: each entry's index read once, each
+    added point once (64 bytes, a mixed addition of 11 products; a
+    bucket's first point costs none), each bucket written once."""
+    nb = seg.numel() - 1
+    added = int(valid[ent.long() % n].sum())
+    filled = int((seg[1:] > seg[:-1]).sum())
+    nbytes = ent.numel() * 4 + added * 64 + (nb + 1) * 4 + nb * 96
+    return nbytes, max(0, added - filled) * 11 * limb.MONT_IMADS
+
+
+def window_work(nwin: int) -> tuple[int, int]:
+    """Bytes and IMADs of kernel D: the buckets read once, the totals
+    written once, 2·255 additions (16 products) a window."""
+    return nwin * BUCKETS * 96 + nwin * 96, nwin * 510 * 16 * limb.MONT_IMADS
+
+
+def scalar_digits_plain(words: torch.Tensor) -> torch.Tensor:
+    """The torch version of kernel E (any device): (n, 8) int32 Fr
+    Montgomery words -> (n, 32) uint8 window digits. A Montgomery product
+    by the integer 1 gives the canonical scalar, whose little-endian bytes
+    are its digits."""
+    one = limb.ints_to_words([1]).to(words.device)
+    return limb.mont_mul(words, one, FR_C).contiguous().view(torch.uint8)
+
+
+def scalar_digits(words: torch.Tensor) -> torch.Tensor:
+    """(n, 8) int32 Fr Montgomery words -> (n, 32) uint8 window digits on
+    their device: kernel E on CUDA tensors, `scalar_digits_plain` on CPU
+    tensors."""
+    if words.dtype != torch.int32 or words.dim() != 2 or words.shape[1] != 8:
+        raise ValueError(f"scalar_digits takes (n, 8) int32 words, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    d = words.device
+    if d.type == "cpu":
+        return scalar_digits_plain(words)
+    if d.type != "cuda":
+        raise ValueError(f"scalar_digits has no kernel for {d}")
+    words = words.contiguous()
+    n = words.shape[0]
+    out = torch.empty((n, 8), dtype=torch.int32, device=d)
+    with torch.cuda.device(d):
+        rc = _build.kernels().lib.zg1_scalar_digits(
+            words.data_ptr(), n, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"scalar_digits ({n} scalars)")
+    _count(scalar_digits, *digits_work(n))
+    return out.view(torch.uint8)
+
+
+scalar_digits.counts = {"launches": 0, "bytes": 0, "imads": 0}
+
+
+def digits_work(n: int) -> tuple[int, int]:
+    """Bytes and IMADs of kernel E: n scalars read and their digits
+    written (32 bytes each way), one Montgomery product each."""
+    return n * 64, n * limb.MONT_IMADS
+
+
+def int_digits(scalars, device) -> torch.Tensor:
+    """Host ints -> (n, 32) uint8 window digits on `device`."""
+    return torch.from_numpy(_digits(scalars).copy()).to(device)
+
+
+def msm_digits(pts: torch.Tensor, valid: torch.Tensor,
+               digits: torch.Tensor):
+    """Σ s_i · P_i by the bucket method on the tensors' device -> host
+    affine point. pts, valid: an affine table (`affine_table`); digits:
+    the scalars' (n, 32) uint8 window digits."""
+    if digits.shape != (pts.shape[0], N_WINDOWS):
+        raise ValueError(f"{tuple(digits.shape)} digits for {pts.shape[0]} "
+                         f"points")
+    ent, seg = bucket_plan(digits)
+    W = window_sums(*bucket_sums(ent, seg, pts, valid))
+    total = None
+    for w, pt in enumerate(dev.to_affine_host(W)):
+        if pt is not None:
+            total = chost.add(total, chost.scalar_mul(pt, 1 << (WINDOW_BITS * w)))
+    return total
+
+
+_TABLES: dict = {}
+
+
+def srs_table(srs, device):
+    """The affine table of srs.powers_g1 on `device`, built at first use;
+    an MSM of n points takes its first n rows. The cache holds the srs
+    too, so its id is never reused by another."""
+    key = (id(srs), str(torch.device(device)))
+    if key not in _TABLES:
+        _TABLES[key] = (srs, affine_table(srs.powers_g1, device))
+    return _TABLES[key][1]
+
+
+def srs_msm(srs, digits: torch.Tensor):
+    """Σ s_i · τ^i·G for the scalars of `digits` ((n, 32) uint8), by the
+    Pippenger on the digits' device against the SRS's cached table."""
+    n = digits.shape[0]
+    if not 0 < n <= len(srs.powers_g1):
+        raise ValueError(f"an MSM of {n} points over an SRS of "
+                         f"{len(srs.powers_g1)}")
+    pts, valid = srs_table(srs, digits.device)
+    return msm_digits(pts[:n], valid[:n], digits)
+
+
+def pippenger(points: list, scalars: list[int], device):
+    """Σ s_i · P_i by the bucket method on `device` -> host affine point."""
+    return msm_digits(*affine_table(points, device),
+                      int_digits(scalars, device))
+
+
+def msm(points: list, scalars: list[int], device=None):
+    """Multi-scalar multiplication Σ s_i · P_i -> host affine point.
+
+    points: host affine points (or None); scalars: ints. With a device,
+    the Pippenger on it at every size (its plain versions on "cpu");
+    with none, the host tiers: the double-and-add below HOST_MAX points,
+    else the native C MSM (the double-and-add where it is absent)."""
+    n = len(points)
+    if n != len(scalars) or n == 0:
+        raise ValueError(f"msm of {n} points and {len(scalars)} scalars")
+    if device is not None:
+        return pippenger(points, scalars, device)
+    if n < HOST_MAX:
+        return chost.msm(points, scalars)
+    from ..native import g1_msm_native
+
+    out = g1_msm_native(points, scalars)
+    if out is not None or all(
+            p is None or s % FR.p == 0 for p, s in zip(points, scalars)):
+        return out
+    return chost.msm(points, scalars)
+
+
+def msm_oracle(points, scalars):
+    return chost.msm(points, scalars)

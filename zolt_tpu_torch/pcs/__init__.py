@@ -1,3 +1,3 @@
-from . import dory, srs
+from . import dory, hyperkzg, mock, srs
 
-__all__ = ["dory", "srs"]
+__all__ = ["dory", "hyperkzg", "mock", "srs"]

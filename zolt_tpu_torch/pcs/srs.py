@@ -29,12 +29,19 @@ class KZGSRS:
 
 
 def insecure_setup(n: int, tau: int = INSECURE_TAU) -> KZGSRS:
-    """Powers-of-τ SRS with a known τ. INSECURE — test/dev only."""
-    powers = []
+    """Powers-of-τ SRS with a known τ. INSECURE — test/dev only. The native
+    tier computes the n scalar multiples as n one-point row MSMs (in
+    parallel); without it, one scalar_mul at a time."""
+    from ..native import g1_msm_rows_native
+
+    exps = []
     t = 1
     for _ in range(n):
-        powers.append(G1.scalar_mul(G1.G1_GEN, t))
+        exps.append(t)
         t = t * tau % FR.p
+    powers = g1_msm_rows_native([G1.G1_GEN], [[e] for e in exps])
+    if powers is None:
+        powers = [G1.scalar_mul(G1.G1_GEN, e) for e in exps]
     return KZGSRS(
         powers_g1=powers,
         tau_g2=G2.scalar_mul(G2.G2_GEN, tau),

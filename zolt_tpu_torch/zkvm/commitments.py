@@ -505,14 +505,59 @@ def sound_layout_num_vars(trace_length: int, bytecode_len: int) -> int:
     return n + (n & 1)
 
 
+# The smallest small-scalar poly the device row tier commits (the JAX
+# package's ZOLT_TPU_DEVICE_COMMIT_MIN default): below it the host C tier's
+# row MSMs take microseconds.
+DEVICE_COMMIT_MIN = 1 << 14
+
+
+def _device_rows(srs, small: list, device, num_vars: int | None = None,
+                 nplanes: int = 4) -> dict:
+    """Row commitments of the uint8 chunk polys of at least
+    DEVICE_COMMIT_MIN entries, by the subset-sum tier on `device`
+    (msm/rows_device.py), one call a matrix width: {poly index: rows}.
+    The matrix dims are row_commitments': per poly (compat) or the global
+    cube's (sound, num_vars given). Nothing falls back: a failure raises."""
+    from ..msm import rows_device
+
+    groups: dict[int, list[int]] = {}
+    for i, sm in enumerate(small):
+        if sm is None or len(sm) < DEVICE_COMMIT_MIN:
+            continue
+        sigma = (dory._matrix_dims(len(sm))[0] if num_vars is None
+                 else (num_vars + 1) // 2)
+        if (1 << sigma) >= rows_device.GROUP:
+            groups.setdefault(1 << sigma, []).append(i)
+    out: dict = {}
+    for cols, idxs in groups.items():
+        eng = rows_device.get_engine(srs, cols, device)
+        rows = eng.commit_rows([small[i] for i in idxs], nplanes=nplanes)
+        out.update(zip(idxs, rows))
+    return out
+
+
+def _oh_u8(positions, cube: int) -> np.ndarray:
+    a = np.zeros(cube, np.uint8)
+    pos = np.asarray(positions, dtype=np.int64)
+    if pos.size:
+        a[pos] = 1
+    return a
+
+
 def commit_and_absorb(transcript, steps, bytecode_len: int,
                       memory_trace_len: int, srs=None,
                       sound: bool = False, log_ram_k: int = 0,
-                      start_address: int = 0, bc_index=None) -> CommitmentPhase:
+                      start_address: int = 0, bc_index=None,
+                      device=None) -> CommitmentPhase:
     """Build + commit + absorb all committed polys; mirrors
     src/zkvm/mod.zig:817-1010. `steps` is the (padded) execution trace.
-    Every commitment runs on the host C tier (the device row-MSM tier is
-    not ported yet).
+
+    With a `device`, the small-scalar chunk polys of at least
+    DEVICE_COMMIT_MIN entries get their row MSMs from the device row-MSM
+    tier (kernel B on CUDA, its plain torch version on the CPU); the Inc
+    polys, the chunk polys below that size and every pairing stay on the
+    host C tier. The commitments are the same bytes either way. `metrics` times the row
+    MSMs ("commit_rows") and the pairings ("commit_pairings") apart.
 
     sound=True switches to the PCS-binding layout: the cycle-indexed RAM
     polys (RamInc, RamRa) span the padded trace cube (so their MLEs equal
@@ -521,6 +566,7 @@ def commit_and_absorb(transcript, steps, bytecode_len: int,
     opening's γ-RLC of GT commitments matches the RLC'd polynomial, and the
     tables are retained for the joint opening prover."""
     from ..native.frvec import FrVec
+    from ..utils.log import metrics
 
     res = CommitmentPhase()
     res.bytecode_poly_size = _next_pow2(max(bytecode_len, 2))
@@ -559,6 +605,7 @@ def commit_and_absorb(transcript, steps, bytecode_len: int,
 
     polys = [build_rd_inc(steps, res.reg_poly_size),
              build_ram_inc(steps, res.memory_poly_size)]
+    small: list = [None, None]  # uint8 value arrays for the device tier
     if sound:
         # one-hot (chunk-value × cycle) cubes over the SOUND lookup index
         # (the stage-8/9/10 lookups argument, zkvm/lookups_raf.py), the
@@ -576,34 +623,40 @@ def commit_and_absorb(transcript, steps, bytecode_len: int,
         positions += bc_oh_positions(bc_index.slots_per_cycle(steps),
                                      n_cycle_vars, bc_index.log_k)
         polys += [FrVec.indicator(cube, pos) for pos in positions]
+        if device is not None:
+            small += [_oh_u8(pos, cube) for pos in positions]
         res.polys = polys
-        # commit in the GLOBAL cube's matrix layout without materializing
-        # the zero padding: missing rows are identity pairing factors, and
-        # FrVec cubes stream canonical bytes straight into the row MSMs
-        for poly in polys:
-            gt = dory.commit(srs, poly, num_vars=res.global_num_vars)
-            res.commitments.append(dory.commitment_bytes(gt))
-        for c in res.commitments:
-            transcript.append_gt(c)
-        return res
+        num_vars, nplanes = res.global_num_vars, 1
+    else:
+        idx_lo, idx_hi = jolt_lookup_lo_hi(steps)
+        small += build_instruction_ra_u8(idx_lo, idx_hi, res.reg_poly_size,
+                                         res.instruction_d)
+        for d in range(res.ram_d):
+            shift = LOG_K_CHUNK * (res.ram_d - 1 - d)
+            small.append(build_ram_ra_u8(steps, res.memory_poly_size, shift))
+        for d in range(res.bytecode_d):
+            shift = LOG_K_CHUNK * (res.bytecode_d - 1 - d)
+            small.append(build_bytecode_ra_u8(steps, res.bytecode_poly_size,
+                                              shift))
+        polys += small[2:]
+        num_vars, nplanes = None, 4
 
-    idx_lo, idx_hi = jolt_lookup_lo_hi(steps)
-    small = list(build_instruction_ra_u8(idx_lo, idx_hi, res.reg_poly_size,
-                                         res.instruction_d))
-    for d in range(res.ram_d):
-        shift = LOG_K_CHUNK * (res.ram_d - 1 - d)
-        small.append(build_ram_ra_u8(steps, res.memory_poly_size, shift))
-    for d in range(res.bytecode_d):
-        shift = LOG_K_CHUNK * (res.bytecode_d - 1 - d)
-        small.append(build_bytecode_ra_u8(steps, res.bytecode_poly_size,
-                                          shift))
-    polys += small
-    for poly in polys:
-        if isinstance(poly, np.ndarray):
-            # u8 values, ingested one poly at a time
-            poly = FrVec.from_u64_array(poly.astype(np.uint64))
-        gt = dory.commit(srs, poly)
-        res.commitments.append(dory.commitment_bytes(gt))
+    # sound: commit in the GLOBAL cube's matrix layout without materializing
+    # the zero padding (missing rows are identity pairing factors; FrVec
+    # cubes stream canonical bytes straight into the row MSMs)
+    with metrics.stage("commit_rows"):
+        rows = ({} if device is None else
+                _device_rows(srs, small, device, num_vars, nplanes))
+        for i, poly in enumerate(polys):
+            if i not in rows:
+                if isinstance(poly, np.ndarray):
+                    # u8 values, ingested one poly at a time
+                    poly = FrVec.from_u64_array(poly.astype(np.uint64))
+                rows[i] = dory.row_commitments(srs, poly, num_vars)
+    with metrics.stage("commit_pairings"):
+        for i in range(len(polys)):
+            gt = dory.pair_rows(srs, rows[i])
+            res.commitments.append(dory.commitment_bytes(gt))
     for c in res.commitments:
         transcript.append_gt(c)
     return res

@@ -49,10 +49,12 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     testing against a proof produced with a different SRS).
 
     backend="device" (the default) runs the wide sumcheck rounds of stages
-    1-4 as torch tensors on `device`: "cuda" (the default) launches the
-    hand-written kernels of zolt_tpu_torch/csrc and raises where there is
-    no CUDA device, "cpu" runs their plain torch versions. backend="host"
-    keeps every round on the host C tier. All give the same bytes.
+    1-4 and the row MSMs of the small-scalar committed polys as torch
+    tensors on `device`: "cuda" (the default) launches the hand-written
+    kernels of zolt_tpu_torch/csrc and raises where there is no CUDA
+    device, "cpu" runs their plain torch versions. backend="host" keeps
+    every round and commitment on the host C tier. All give the same
+    bytes.
 
     sound=True proves the real stages 5-12 in place of the reference's
     zero stages and binds every committed claim with one PCS batch opening
@@ -125,7 +127,7 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
                                       len(emu.ram.trace), srs=srs, sound=sound,
                                       log_ram_k=LOG_RAM_K,
                                       start_address=emu.device.layout.lowest_address(),
-                                      bc_index=bc_index)
+                                      bc_index=bc_index, device=device)
         commitment_bytes = list(phase.commitments)
 
     tau = derive_tau(transcript, n_cycle_vars)
