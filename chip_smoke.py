@@ -72,21 +72,29 @@ pairs, half of them edge cases, words equal; B (the row MSMs) at the
 sound shape (40 one-hot cubes of 2^20 in the 2^10 x 2^10 layout, one
 plane) and the compat shape (32 polys of 2^16 values below 16, 2^8 x
 2^8, four planes), affine rows equal to the plain version's and to
-`dory.row_commitments`; C and D (the Pippenger's bucket and window sums)
-in the Pippenger at n = 2^16 and 2^18 against the native C MSM, and
-against their plain versions at 2^16, with the host steps of a call
-timed; E (the scalars' digits from Fr Montgomery words) at 2^18 against
-its plain version and the host's digits, bytes equal. Kernel B's path
-bound is that of the work its wrapper counted in each prove. After
-phase 5:
+`dory.row_commitments`, at the lanes a row its wrapper picks and, in a
+sweep of device ms, at every other; C and D (the Pippenger's bucket and
+window sums) in the Pippenger at n = 2^16 and 2^18 against the native C
+MSM, D against its plain version at both and C at 2^16, with the host
+steps of a call timed; E (the scalars' digits from Fr Montgomery words)
+at 2^18 against its plain version and the host's digits, bytes equal.
+Kernel B's path bound is that of the work its wrapper counted in each
+prove, and its path device ms the sum of CUDA events around each of its
+launches there (the profiled prove's torch.profiler figure beside it).
+B's and D's device ms before their redesign, recorded figures, are
+printed beside this run's on lines of their own.
+After phase 5:
 6. commit: the commitment phase alone (`commit_and_absorb`) in each mode
    on the device tier and the host C tier in three alternating pairs, its
    seconds split into the row MSMs and the pairings, the commitments
-   equal; a first device commit gives kernel B's work and device ms in
-   the phase alone.
+   equal; a first device commit gives kernel B's work in the phase alone
+   and each of its launches' ms by CUDA events beside the launches
+   torch.profiler recorded, and its inputs (the path's own density) hold
+   kernel B to its plain version at every lanes-a-row, with a sweep of
+   device ms.
 7. kzg: HyperKZG at 2^18 on the card: commit (of a tensor on the card),
    open and verify, the commitment equal to the native C MSM; kernels C,
-   D and E must launch.
+   D and E must launch (each also timed by CUDA events there).
 
 The last three lines are the kernels' JSON, the nvidia-smi card line and
 the result JSON.
@@ -146,6 +154,39 @@ PROVE_PATH = ("fold", "product_evals_k2", "product_evals_k3", "gruen_round",
               "row_plane_sums")
 # The kernels the HyperKZG commit and open must launch.
 KZG_PATH = ("bucket_accumulate", "window_sums", "scalar_digits")
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes (stores/loads) of each kernel from nvcc's
+    -Xptxas -v lines: {"name[<template args>]": "R regs, S/L spill"}."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = mangled = m.group(1)
+            # a mangled name segment is its length, then its characters
+            # (the length may follow other digits)
+            for d in re.finditer(r"\d+", mangled):
+                for i in range(d.start(), d.end()):
+                    seg = mangled[d.end():d.end() + int(mangled[i:d.end()])]
+                    if seg.endswith("_kernel"):
+                        t = re.match(r"ILi(\d+)E",
+                                     mangled[d.end() + len(seg):])
+                        name = seg + (f"<{t.group(1)}>" if t else "")
+                        break
+                if name != mangled:
+                    break
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name] = f"{m.group(1)}/{m.group(2)} spill"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} regs, " + out.get(name, "")
+            name = None
+    return out
 
 
 def say(phase: str, msg: str) -> None:
@@ -744,10 +785,56 @@ SOUND_ROWS = (40, 1 << 10, 1 << 10, 1)
 COMPAT_ROWS = (32, 1 << 8, 1 << 8, 4)
 
 
+# Kernels B's and D's device ms before their redesign (B a warp a row, D
+# a thread a window; this script on an NVIDIA H100 80GB HBM3 at 700.00 W):
+# recorded figures, printed on a line of their own beside this run's and
+# kept out of the kernels line, which holds only what this run measured.
+PRIOR_DEVICE_MS = {"row_plane_sums": 10.2933, "row_plane_sums_compat": 1.6565,
+                   "window_sums": 11.5800, "window_sums_path": 284.0506}
+
+
+def say_prior(phase: str, key: str, what: str, now: float | None) -> None:
+    """This run's device ms of kernel B or D beside PRIOR_DEVICE_MS[key]."""
+    name = key.removesuffix("_path").removesuffix("_compat")
+    say(phase, f"{name} {what}: device {ms_text(now)} in this run; "
+               f"{PRIOR_DEVICE_MS[key]:.4f} ms before the redesign "
+               f"(recorded, not measured here)")
+
+
+def lanes_sweep(torch, vals, table, valid, nplanes: int, want: list,
+                phase: str, what: str) -> dict:
+    """Kernel B at every lanes-a-row it takes (its wrapper's choice
+    replaced for the sweep), on the same inputs: each launch's affine rows
+    must equal `want` (the plain version's); returns the device ms of each
+    (torch.profiler, by kernel name, 20 calls)."""
+    from zolt_tpu_torch.msm import rows_device
+
+    out = {}
+    pick = rows_device.lanes_per_row
+    try:
+        for lanes in rows_device.LANES:
+            rows_device.lanes_per_row = lambda *_, n=lanes: n
+
+            def run():
+                return rows_device.row_sums(vals, table, valid, nplanes)
+            if affine_of(run()) != want:
+                raise AssertionError(f"kernel B at {lanes} lanes a row "
+                                     f"differs from its plain version "
+                                     f"({what})")
+            out[lanes] = round(device_ms(torch, run, 20,
+                                         DEVICE_NAMES["row_plane_sums"]), 4)
+    finally:
+        rows_device.lanes_per_row = pick
+    say(phase, f"row_plane_sums at every lanes-a-row ({what}): affine equal "
+               f"to the plain version at each; device ms {out}")
+    return out
+
+
 def check_rows(torch, gen, stats: dict) -> None:
     """Kernel B at the sound and compat shapes: affine rows equal to the
     host C tier's row MSMs (`dory.row_commitments`, as the host commit
-    computes them), and to the plain version's."""
+    computes them), and to the plain version's, at the lanes a row its
+    wrapper picks and at every other."""
     import numpy as np
 
     from zolt_tpu_torch.msm import rows_device
@@ -798,22 +885,30 @@ def check_rows(torch, gen, stats: dict) -> None:
                                  f"row MSMs at the {name} shape")
         nz = rows_device.count_nonzero(vals, eng.valid, nplanes)
         work = rows_device.work(nz, npoly * rows, cols, nplanes)
+        lanes = rows_device.lanes_per_row(nz, npoly * rows,
+                                          nplanes * cols // 8)
         say("g1", f"row_plane_sums at the {name} shape ({npoly} polys x "
                   f"{rows} rows x {cols} cols, {nplanes} planes; {nz} table "
-                  f"points added): affine equal to the plain version and "
-                  f"to the host C tier's row MSMs ({host_s:.3f} s on the "
-                  f"host); engine built and uploaded in {built:.3f} s")
-        timings(torch, stats, "row_plane_sums" + ("" if nplanes == 1 else
-                                                  "_compat"),
+                  f"points added, {lanes} lanes a row): affine equal to the "
+                  f"plain version and to the host C tier's row MSMs "
+                  f"({host_s:.3f} s on the host); engine built and uploaded "
+                  f"in {built:.3f} s")
+        key = "row_plane_sums" + ("" if nplanes == 1 else "_compat")
+        timings(torch, stats, key,
                 lambda: rows_device.row_sums(vals, eng.table, eng.valid,
                                              nplanes),
                 lambda: rows_device.row_sums_plain(vals, eng.table, eng.valid,
                                                    nplanes),
-                *work, f"{name}: {npoly} x {rows} x {cols}, {nplanes} planes",
+                *work, f"{name}: {npoly} x {rows} x {cols}, {nplanes} planes, "
+                f"{nz} points, {lanes} lanes a row",
                 0, plain_iters=1, phase="g1",
                 device_name=DEVICE_NAMES["row_plane_sums"])
-        stats["row_plane_sums" + ("" if nplanes == 1 else "_compat")][
-            "host_s"] = host_s
+        say_prior("g1", key, f"at the {name} shape",
+                  stats[key]["device_ms"])
+        stats[key].update(host_s=host_s, lanes=lanes,
+                          lanes_ms=lanes_sweep(torch, vals, eng.table,
+                                               eng.valid, nplanes, aff, "g1",
+                                               f"the {name} shape"))
 
 
 KZG_LOG_N = 18
@@ -893,13 +988,16 @@ def check_pippenger(torch, stats: dict, kzg) -> None:
                     lambda: pippenger.scalar_digits_plain(words),
                     *pippenger.digits_work(n), f"n = 2^{log_n} scalars", err,
                     phase="g1", device_name=DEVICE_NAMES["scalar_digits"])
+        if affine_of(W) != affine_of(pippenger.window_sums_plain(*B)):
+            raise AssertionError(f"kernel D differs from its plain version "
+                                 f"at n = 2^{log_n}")
+        say("g1", f"window_sums at n = 2^{log_n}: affine equal to the plain "
+                  f"version")
         if log_n != MSM_LOG_NS[0]:
             continue
         if affine_of(B) != affine_of(
                 pippenger.bucket_sums_plain(ent, seg, ptab, valid)):
             raise AssertionError("kernel C differs from its plain version")
-        if affine_of(W) != affine_of(pippenger.window_sums_plain(*B)):
-            raise AssertionError("kernel D differs from its plain version")
         timings(torch, stats, "bucket_accumulate",
                 lambda: pippenger.bucket_sums(ent, seg, ptab, valid),
                 lambda: pippenger.bucket_sums_plain(ent, seg, ptab, valid),
@@ -912,6 +1010,8 @@ def check_pippenger(torch, stats: dict, kzg) -> None:
                 *pippenger.window_work(32), "32 windows x 255 buckets", 0,
                 plain_iters=1, phase="g1",
                 device_name=DEVICE_NAMES["window_sums"])
+        say_prior("g1", "window_sums", "at 32 windows",
+                  stats["window_sums"]["device_ms"])
 
 
 def run_kzg(torch, kzg) -> dict:
@@ -938,7 +1038,10 @@ def run_kzg(torch, kzg) -> dict:
          for _ in range(KZG_LOG_N)]
     words = limb.encode(evals, device="cuda")
     reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with launch_events(torch, "zg1_window_sums") as d_ev, \
+            launch_events(torch, "zg1_bucket_accumulate") as c_ev, \
+            launch_events(torch, "zg1_scalar_digits") as e_ev, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         com = hyperkzg.commit(kzg, words)
         t1 = time.perf_counter()
@@ -947,6 +1050,8 @@ def run_kzg(torch, kzg) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches, counts = read_launches()
+    events = {"window_sums": d_ev, "bucket_accumulate": c_ev,
+              "scalar_digits": e_ev}
     ok = hyperkzg.verify(kzg, com, x, hyperkzg._mle_eval(evals, x), proof,
                          Blake2bTranscript(b"kzg"))
     t3 = time.perf_counter()
@@ -964,10 +1069,15 @@ def run_kzg(torch, kzg) -> dict:
     for k in KZG_PATH:
         c = counts[k]
         b_ms, b_by = bound(c["bytes"], c["imads"])
-        figures[k] = dict(bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms[k])
+        figures[k] = dict(bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms[k],
+                          device_ms_events=round(sum(events[k]), 4))
         say("kzg", f"{k} on the HyperKZG path: {c['launches']} launches, "
                    f"{c['bytes']} bytes, {c['imads']} IMADs, bound "
-                   f"{b_ms:.4f} ms by {b_by}, device {ms_text(dev_ms[k])}")
+                   f"{b_ms:.4f} ms by {b_by}, device {ms_text(dev_ms[k])}; "
+                   f"by CUDA events {figures[k]['device_ms_events']:.4f} ms "
+                   f"over {len(events[k])} launches")
+    say_prior("kzg", "window_sums_path", "on the HyperKZG path",
+              figures["window_sums"]["device_ms"])
     secs = dict(commit=t1 - t0, open=t2 - t1, verify=t3 - t2)
     say("kzg", f"HyperKZG at 2^{KZG_LOG_N} on the card: commit, open and "
                f"verify pass, the commitment equals the native C MSM; "
@@ -989,6 +1099,29 @@ def commit_inputs(path: str, sound: bool) -> dict:
                 log_ram_k=pipeline.LOG_RAM_K,
                 start_address=emu.device.layout.lowest_address(),
                 bc_index=BytecodeIndex.from_elf(path) if sound else None)
+
+
+def path_density(torch, caught: list, mode: str) -> list:
+    """Kernel B on the inputs the commitment phase gave it (the path's own
+    density), at the lanes its wrapper picks and at every other: affine
+    equal to the plain version's at each (the phase's commitments are
+    already held to the host C tier's)."""
+    from zolt_tpu_torch.msm import rows_device
+
+    out = []
+    for vals, table, valid, nplanes in caught:
+        npoly, rows, cols = vals.shape
+        nz = rows_device.count_nonzero(vals, valid, nplanes)
+        lanes = rows_device.lanes_per_row(nz, npoly * rows,
+                                          nplanes * cols // 8)
+        want = affine_of(rows_device.row_sums_plain(vals, table, valid,
+                                                    nplanes))
+        what = (f"{mode} path: {npoly} x {rows} x {cols}, {nplanes} planes, "
+                f"{nz} points, {nz / (npoly * rows):.1f} a row, the "
+                f"wrapper's {lanes} lanes")
+        out.append(dict(shape=what, lanes=lanes, lanes_ms=lanes_sweep(
+            torch, vals, table, valid, nplanes, want, "commit", what)))
+    return out
 
 
 def commit_pairs(torch, log_t: int, pairs: int = 3) -> dict:
@@ -1026,12 +1159,19 @@ def commit_pairs(torch, log_t: int, pairs: int = 3) -> dict:
                     **{k: v for k, v in m.items() if k.startswith("row_msm")})
 
             reset_launches()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with captured_rows() as caught, \
+                    launch_events(torch, "zg1_row_msm") as ev, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
                 first, first_t = commit("cuda")
             _, counts = read_launches()
             work = counts["row_plane_sums"]
             dev_ms = recorded_ms(prof, counts, ("row_plane_sums",),
                                  "commit")
+            seen = kernel_events(prof, DEVICE_NAMES["row_plane_sums"])
+            say("commit", f"{mode}: kernel B's {len(ev)} launches in the "
+                          f"phase by CUDA events {ev} ms (sum "
+                          f"{sum(ev):.4f}); torch.profiler recorded "
+                          f"{len(seen)} (start µs, device µs) {seen}")
             runs = []
             for i in range(pairs):
                 for tier in (("cuda", None) if i % 2 == 0 else (None, "cuda")):
@@ -1043,7 +1183,10 @@ def commit_pairs(torch, log_t: int, pairs: int = 3) -> dict:
             b_ms, b_by = bound(work["bytes"], work["imads"])
             out[mode] = dict(first_device=first_t, pairs=runs, work=work,
                              bound_ms=b_ms, bound_by=b_by,
-                             device_ms=dev_ms["row_plane_sums"])
+                             device_ms=dev_ms["row_plane_sums"],
+                             device_ms_events=round(sum(ev), 4),
+                             launch_ms_events=ev, profiler_events=seen,
+                             path_inputs=path_density(torch, caught, mode))
             say("commit", f"{mode} commitments at T = 2^{log_t}: equal on "
                           f"both tiers; first device commit (engine built) "
                           f"{first_t}; kernel B in the phase: {work}, bound "
@@ -1194,9 +1337,10 @@ def recorded_ms(prof, counts: dict, names, phase: str) -> dict:
     """Device ms by kernel from a profile, for each kernel whose launches
     there the profiler recorded as many times as its wrapper counted them
     (`counts`, as read_launches gives them); None, and a line saying so,
-    where it recorded another number. On some runs the profiler recorded
-    one of the two row-MSM launches of a commit phase, while the prove's
-    profile (profiled_prove) has always matched."""
+    where it recorded another number: torch.profiler now and then loses
+    the first kernel of a profile when it comes from the kernel library
+    (PERF.md, "The measurement gap"), so the G1 phases also time each
+    launch by CUDA events (launch_events)."""
     on_dev, dev_ms = device_kernel_counts(prof.key_averages())
     out = {}
     for k in names:
@@ -1221,6 +1365,71 @@ def device_kernel_counts(rows) -> tuple[dict, dict]:
     ms = {k: round(device_us([e for e in rows if v in e.key]) / 1e3, 4)
           for k, v in DEVICE_NAMES.items()}
     return counts, ms
+
+
+@contextlib.contextmanager
+def launch_events(torch, entry: str):
+    """While open, each call of the kernel library's entry point `entry`
+    (a wrapper's one launch) is bracketed by CUDA events on the current
+    stream, the stream it launches on. Yields a list that gets each
+    launch's device ms, in launch order, when the block ends (after a
+    device sync): the kernels' times without torch.profiler."""
+    from zolt_tpu_torch import _build
+
+    lib = _build.kernels().lib
+    orig = getattr(lib, entry)
+    pairs, out = [], []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = orig(*args)
+        end.record()
+        pairs.append((start, end))
+        return rc
+
+    setattr(lib, entry, timed)
+    try:
+        yield out
+    finally:
+        setattr(lib, entry, orig)
+        torch.cuda.synchronize()
+        out.extend(round(a.elapsed_time(b), 4) for a, b in pairs)
+
+
+@contextlib.contextmanager
+def captured_rows():
+    """While open, each call of rows_device.row_sums (which DeviceRowMSM
+    looks up at call time) appends its inputs (vals, table, valid,
+    nplanes) to the list this yields. The wrapper's counters stay the
+    ones counters() reads."""
+    from zolt_tpu_torch.msm import rows_device
+
+    orig = rows_device.row_sums
+    got = []
+
+    def spy(vals, table, valid, nplanes, **kw):
+        got.append((vals, table, valid, nplanes))
+        return orig(vals, table, valid, nplanes, **kw)
+
+    spy.counts = orig.counts
+    rows_device.row_sums = spy
+    try:
+        yield got
+    finally:
+        rows_device.row_sums = orig
+
+
+def kernel_events(prof, name: str) -> list:
+    """(start µs after the first, device µs) of each device event of a
+    profile whose name holds `name`."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e.time_range.start, e.time_range.elapsed_us())
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name)
+    return [(round(a - evs[0][0], 1), round(d, 1)) for a, d in evs]
 
 
 # The host-clock stages of the sound prove that the compat prove lacks.
@@ -1338,10 +1547,13 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
             reset_launches()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            with batch_opening_counts(torch) as bo:
+            with batch_opening_counts(torch) as bo, \
+                    launch_events(torch, "zg1_row_msm") as b_ev:
                 dev, dev_s, stages = timed_prove(torch, path, sound=True)
             peak = torch.cuda.max_memory_allocated()
             launches, work = read_launches()
+            say("sound", f"kernel B in the sound prove by CUDA events: "
+                         f"{b_ev} ms, sum {sum(b_ev):.4f}")
             say("sound", f"sound device prove (defaults: backend 'device', "
                          f"'cuda'), tail 0: {dev_s:.3f} s {stages}; peak "
                          f"device memory {peak} bytes "
@@ -1379,6 +1591,8 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
                                      "the sound prove"),
                "batch_opening": path_figures(bo, prof and prof["bo_ms"],
                                              "sound", "its batch opening")}
+    figures["prove"]["row_plane_sums"]["device_ms_events"] = round(sum(b_ev),
+                                                                   4)
     figures.update(seconds=dev_s, host_seconds=host_s, stages=stages,
                    peak_bytes=peak, busy_ms=prof and prof["busy_ms"],
                    bo_launches=entry_launches(bo))
@@ -1454,9 +1668,12 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        dev, dev_s, dev_stages = timed_prove(torch, path)
+        with launch_events(torch, "zg1_row_msm") as b_ev:
+            dev, dev_s, dev_stages = timed_prove(torch, path)
         peak = torch.cuda.max_memory_allocated()
         launches, work = read_launches()
+        say("slice", f"kernel B in the device prove by CUDA events: {b_ev} "
+                     f"ms, sum {sum(b_ev):.4f}")
         say("slice", f"device prove (defaults: backend 'device', 'cuda'), "
                      f"tail 0: {dev_s:.3f} s {dev_stages}; peak device "
                      f"memory {peak} bytes ({peak / 2 ** 20:.1f} MiB)")
@@ -1487,6 +1704,7 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
                                  f"{launches}")
         path_stats = path_figures(work, dev_ms, "slice", "the path")
         path_stats["peak_bytes"] = peak
+        path_stats["row_plane_sums"]["device_ms_events"] = round(sum(b_ev), 4)
 
         reset_launches()
         host, host_s, host_stages = timed_prove(torch, path, backend="host")
@@ -1557,13 +1775,17 @@ def kernels_json(stats: dict, launches: dict, path: dict,
         if name in KZG_PATH:
             entry.update({f"path_{k}": v for k, v in
                           kzg["figures"][name].items()
-                          if k in ("bound_ms", "device_ms")})
+                          if k.startswith(("bound_ms", "device_ms"))})
         if on_prove:
+            lanes = ("lanes", "lanes_ms")
             entry.update(sound_launches=sound_launches[name],
+                         lanes=stats[name]["lanes"],
+                         lanes_ms=stats[name]["lanes_ms"],
                          compat_shape={k: stats[name + "_compat"][k]
-                                       for k in keys + ("shape",)},
+                                       for k in keys + ("shape",) + lanes},
                          commit_phase={m: {k: c[k] for k in (
-                             "bound_ms", "device_ms")}
+                             "bound_ms", "device_ms", "device_ms_events",
+                             "path_inputs")}
                              for m, c in commits.items()})
             for pre, figs in (("path", path), ("sound_path", sound["prove"])):
                 entry.update({f"{pre}_{k}": v for k, v in figs[name].items()
@@ -1602,10 +1824,9 @@ def main() -> int:
     from zolt_tpu_torch.native import get_lib, get_trace_lib
 
     kl = _build.kernels()
-    regs = [ln.strip() for ln in kl.ptxas_log.splitlines()
-            if "registers" in ln or "spill" in ln]
     say("build", f"nvcc sm_90a kernels built in {kl.build_s:.2f} s "
-                 f"({os.path.basename(kl.path)}); ptxas: {regs}")
+                 f"({os.path.basename(kl.path)}); ptxas, by kernel: "
+                 f"{ptxas_summary(kl.ptxas_log)}")
     lib = get_lib()
     if lib is None or not getattr(lib, "_frv_ready", False):
         raise AssertionError("the native C tier did not load")

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Kernels B and D of two checkouts of the repository, on one GPU, in turns.
+
+    python3 experiments/g1_kernels/compare_g1.py PARENT_ROOT CHANGE_ROOT
+
+runs the measurements below once for each root in the order parent,
+change, change, parent, each in a process of its own (each root builds
+its own kernels), and prints one JSON line a run, then the card's name
+and power limit:
+
+- kernel B (the row MSMs) at chip_smoke.py's sound shape (40 one-hot
+  cubes of 2^20 in 2^10 x 2^10, one plane) and compat shape (32 polys of
+  2^16 values below 16, 2^8 x 2^8, four planes), same seeds in both
+  roots: device ms a call by torch.profiler (kernel name
+  "row_msm_kernel", 20 calls) and by CUDA events around each launch;
+- kernel D (the window sums) on the buckets of the 2^16-point Pippenger
+  of chip_smoke.py: device ms a call, the same two ways;
+- the T = 2^16 commitment phase alone (commit_and_absorb on "cuda"), in
+  compat and sound mode, three times each under torch.profiler: each
+  kernel B launch's ms by CUDA events beside the launches the profiler
+  recorded and their device µs.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+# the checkout this script belongs to
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def run(root: str) -> dict:
+    sys.path.insert(0, root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from zolt_tpu_torch import _build
+    from zolt_tpu_torch.msm import pippenger, rows_device
+    from zolt_tpu_torch.pcs import dory
+    from zolt_tpu_torch.pcs import srs as srs_mod
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+    from zolt_tpu_torch.zkvm.commitments import commit_and_absorb
+
+    out = {"root": root}
+    out["build_s"] = round(_build.kernels().build_s, 2)
+
+    # CUDA events around each launch: this checkout's chip_smoke.py, which
+    # times the kernel library of the root on sys.path
+    here = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    smoke_here = importlib.util.module_from_spec(here)
+    here.loader.exec_module(smoke_here)
+
+    def events(entry: str):
+        return smoke_here.launch_events(torch, entry)
+
+    def device(fn, name: str, entry: str, iters: int = 20) -> dict:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in p.key_averages()
+                 if name in e.key)
+        with events(entry) as ev:
+            for _ in range(iters):
+                fn()
+        return {"profiler_ms": round(us / 1e3 / iters, 4),
+                "events_ms": round(sum(ev) / len(ev), 4)}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261017)
+    srs = dory.setup(20)
+    for name, (npoly, rows, cols, nplanes) in (
+            ("sound", chip_smoke.SOUND_ROWS), ("compat", chip_smoke.COMPAT_ROWS)):
+        eng = rows_device.get_engine(srs, cols, "cuda")
+        if nplanes == 1:
+            cyc = rows * cols // 16
+            k = torch.randint(0, 16, (npoly, cyc), device="cuda",
+                              generator=gen)
+            pos = k * cyc + torch.arange(cyc, device="cuda")
+            keep = torch.rand((npoly, cyc), device="cuda", generator=gen)
+            pos = torch.where(keep < 0.9, pos, 0)
+            vals = torch.zeros((npoly, rows * cols), dtype=torch.uint8,
+                               device="cuda")
+            vals.scatter_(1, pos, 1)
+            vals[:, 0] = 0
+            vals[-1] = 0
+        else:
+            vals = torch.randint(0, 16, (npoly, rows * cols), device="cuda",
+                                 generator=gen).to(torch.uint8)
+            vals[-1] = 0
+        vals = vals.view(npoly, rows, cols)
+        out[f"B_{name}"] = device(
+            lambda: rows_device.row_sums(vals, eng.table, eng.valid, nplanes),
+            "row_msm_kernel", "zg1_row_msm")
+
+    kzg = srs_mod.insecure_setup(1 << 16)
+    pts, sc = chip_smoke.msm_inputs(kzg, 1 << 16, 16)
+    ptab, valid = pippenger.affine_table(pts, "cuda")
+    ent, seg = pippenger.bucket_plan(pippenger.int_digits(sc, "cuda"))
+    buckets = pippenger.bucket_sums(ent, seg, ptab, valid)
+    out["D_32_windows"] = device(lambda: pippenger.window_sums(*buckets),
+                                 "window_kernel", "zg1_window_sums")
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(chip_smoke.sum_loop_elf(16))
+        for mode, sound in (("compat", False), ("sound", True)):
+            kw = chip_smoke.commit_inputs(path, sound)
+            runs = []
+            for _ in range(3):
+                with events("zg1_row_msm") as ev, \
+                        profile(activities=[ProfilerActivity.CUDA]) as p:
+                    commit_and_absorb(Blake2bTranscript(b"Jolt"),
+                                      device="cuda", **kw)
+                    torch.cuda.synchronize()
+                seen = [round(e.time_range.elapsed_us(), 1)
+                        for e in p.events() if "row_msm_kernel" in e.name]
+                runs.append({"events_ms": ev, "profiler_us": seen})
+            out[f"commit_{mode}"] = runs
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(run(os.path.abspath(sys.argv[2]))), flush=True)
+        return 0
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent, change = sys.argv[1:]
+    for root in (parent, change, change, parent):
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--one", root], capture_output=True, text=True)
+        lines = done.stdout.strip().splitlines()
+        if done.returncode or not lines:
+            print(done.stdout + done.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(lines[-1].rstrip("}") + f', "seconds": '
+              f'{time.perf_counter() - t0:.1f}}}', flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,6 +29,7 @@ go up by exactly one per launch. Tolerance: exact (equal words), since every
 value is a canonical field element.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -306,13 +307,51 @@ def test_g1_add_double_kernel_matches_plain(gen, n):
                    zip(dev.pt_double(sq), dev.pt_double_plain(sq)))
 
 
+def _edge_basis(g1_vec, cols: int) -> list:
+    """A row-MSM basis whose table points meet as P + P and P + (−P): P =
+    g1_vec[0] also sits at column cols/2 (a later lane's share from 2
+    lanes a row up) and at column 8 (the next group: the same lane's
+    share at few lanes), −P at column 1 (group 0's subset {0, 1} sums to
+    the identity) and at the last group's first column."""
+    from zolt_tpu_torch.curve import host
+
+    basis = list(g1_vec[:cols])
+    p = basis[0]
+    basis[1] = host.neg(p)
+    if cols >= 16:
+        basis[8] = p
+        basis[cols // 2] = p
+        basis[cols - 8] = host.neg(p)
+    return basis
+
+
+def _edge_rows(cols: int, nplanes: int, rng) -> list:
+    """Rows of scalars for _edge_basis: none, one and every subset byte
+    non-zero; P + (−P) and P + P on one lane and across lanes; a subset
+    whose table entry is the identity."""
+    top = (1 << nplanes) - 1
+    rows = [np.zeros(cols, np.uint8), np.zeros(cols, np.uint8),
+            np.full(cols, top, np.uint8),
+            rng.integers(1, top + 1, cols).astype(np.uint8)]
+    rows[1][3] = top
+    for cs in ((0, 1), (0, 8), (0, cols // 2), (0, cols - 8),
+               (0, 8, cols // 2, cols - 8)):
+        r = np.zeros(cols, np.uint8)
+        r[[c for c in cs if c < cols]] = 1
+        rows.append(r)
+    return rows
+
+
+@pytest.mark.parametrize("fill", ["random", "edge"])
 @pytest.mark.parametrize("cols,nplanes,rows", [(8, 1, 3), (64, 4, 5),
                                                (256, 4, 64), (1024, 1, 33)])
-def test_row_msm_kernel_matches_plain_and_native(gen, cols, nplanes, rows):
+def test_row_msm_kernel_matches_plain_and_native(gen, cols, nplanes, rows,
+                                                  fill):
     """Kernel B, affine, against its plain version and the native C row
-    MSMs: partial matrices, an all-zero poly, random and one-hot scalars."""
-    import numpy as np
-
+    MSMs at every lanes-a-row it takes: partial matrices, an all-zero
+    poly, random and one-hot scalars; and ("edge") a basis whose points
+    meet as P + P and P + (−P) inside a lane and across the lanes' tree,
+    with rows of no, one and every subset byte non-zero."""
     from chip_smoke import affine_of
     from zolt_tpu_torch.msm import rows_device
     from zolt_tpu_torch.native import g1_msm_rows_native
@@ -320,11 +359,19 @@ def test_row_msm_kernel_matches_plain_and_native(gen, cols, nplanes, rows):
 
     srs = dory.setup(20)
     rng = np.random.default_rng(cols + nplanes)
-    polys = [rng.integers(0, 1 << nplanes, size=cols * rows, dtype=np.uint8),
-             rng.integers(0, 1 << nplanes, size=cols * 2 + 3,
-                          dtype=np.uint8),
-             np.zeros(cols * rows, np.uint8)]
-    eng = rows_device.get_engine(srs, cols, "cuda")
+    if fill == "edge":
+        basis = _edge_basis(srs.g1_vec, cols)
+        polys = [np.concatenate(_edge_rows(cols, nplanes, rng))]
+        eng = rows_device.DeviceRowMSM(basis, cols, "cuda")
+    else:
+        basis = srs.g1_vec[:cols]
+        polys = [rng.integers(0, 1 << nplanes, size=cols * rows,
+                              dtype=np.uint8),
+                 rng.integers(0, 1 << nplanes, size=cols * 2 + 3,
+                              dtype=np.uint8),
+                 np.zeros(cols * rows, np.uint8)]
+        eng = rows_device.get_engine(srs, cols, "cuda")
+    rows = max(len(p) for p in polys) // cols
     before = rows_device.row_sums.counts["launches"]
     got = eng.commit_rows(polys, nplanes)
     assert rows_device.row_sums.counts["launches"] == before + 1
@@ -333,15 +380,24 @@ def test_row_msm_kernel_matches_plain_and_native(gen, cols, nplanes, rows):
         pad = np.zeros(n * cols, np.int64)
         pad[:len(v)] = v
         assert g == g1_msm_rows_native(
-            srs.g1_vec[:cols], [[int(s) for s in pad[r * cols:(r + 1) * cols]]
-                                for r in range(n)])
+            basis, [[int(s) for s in pad[r * cols:(r + 1) * cols]]
+                    for r in range(n)])
     vals = torch.from_numpy(np.stack([np.resize(p, cols * rows)
                                       for p in polys])).cuda().view(
         len(polys), rows, cols)
+    want = affine_of(rows_device.row_sums_plain(vals, eng.table, eng.valid,
+                                                nplanes))
+    pick = rows_device.lanes_per_row
+    try:
+        for lanes in rows_device.LANES:
+            rows_device.lanes_per_row = lambda *_, n=lanes: n
+            assert affine_of(rows_device.row_sums(
+                vals, eng.table, eng.valid, nplanes)) == want
+    finally:
+        rows_device.lanes_per_row = pick
     before = dict(rows_device.row_sums.counts)
     assert affine_of(rows_device.row_sums(vals, eng.table, eng.valid,
-                                          nplanes)) == affine_of(
-        rows_device.row_sums_plain(vals, eng.table, eng.valid, nplanes))
+                                          nplanes)) == want
     # the launch counts the work its data needs
     nbytes, imads = rows_device.work(
         rows_device.count_nonzero(vals, eng.valid, nplanes),
@@ -351,12 +407,48 @@ def test_row_msm_kernel_matches_plain_and_native(gen, cols, nplanes, rows):
         nbytes, imads)
 
 
-@pytest.mark.parametrize("n", [32, 1000, 1 << 14])
-def test_pippenger_kernels_match_plain_and_native(gen, n):
+def _edge_windows(pts: list, seed: int, device="cuda"):
+    """Eight windows of 256 Jacobian buckets (random Z) on the card:
+    0 all empty; 1 only bucket 255; 2 only bucket 1; 3 identities whose X
+    and Y are not zero (Z = 0); 4 P at buckets 1 and 65 (P + P among a
+    lane's four buckets of bit 0), −P at bucket 3 (P + (−P) across the
+    lanes' tree), 2P at 2; 5-7 a point at every bucket, bucket 0
+    included (no window sum reads it)."""
+    from zolt_tpu_torch.curve import host
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.field.params import FP
+
+    rng = np.random.default_rng(seed)
+    p = FP.p
+    x, y, z = [0] * 2048, [0] * 2048, [0] * 2048
+
+    def put(i, pt):
+        lam = int(rng.integers(1, 1 << 62)) * int(rng.integers(1, 1 << 62))
+        x[i] = pt[0] * lam * lam % p
+        y[i] = pt[1] * pow(lam, 3, p) % p
+        z[i] = lam % p
+
+    put(256 + 255, pts[0])
+    put(512 + 1, pts[1])
+    for i in range(768, 1024):
+        x[i], y[i] = 5, 7
+    P = pts[2]
+    for b, pt in ((1, P), (65, P), (3, host.neg(P)), (2, host.double(P))):
+        put(1024 + b, pt)
+    for i in range(1280, 2048):
+        put(i, pts[i % len(pts)])
+    return tuple(limb.encode(v, limb.FP_C, device) for v in (x, y, z))
+
+
+@pytest.mark.parametrize("n,windows", [(32, "msm"), (1000, "msm"),
+                                       (1 << 14, "msm"), (256, "edge")])
+def test_pippenger_kernels_match_plain_and_native(gen, n, windows):
     """Kernels C and D, affine, against their plain versions, and the
     whole Pippenger against the native C MSM: duplicates, a negation, the
     identity, zero scalars. Kernel E's digits equal its plain version's
-    and the host's."""
+    and the host's. "edge": kernel D also on windows whose buckets are
+    all empty, hold one point (at 255, at 1), identities, or points that
+    meet as P + P and P + (−P) in its tree."""
     from chip_smoke import affine_of, msm_inputs
     from zolt_tpu_torch.field import limb
     from zolt_tpu_torch.msm import pippenger
@@ -385,6 +477,15 @@ def test_pippenger_kernels_match_plain_and_native(gen, n):
     assert torch.equal(pippenger.scalar_digits_plain(words), digits)
     assert pippenger.pippenger(pts, sc, "cuda") == g1_msm_native(pts, sc)
     assert pippenger.msm(pts, sc, device="cuda") == g1_msm_native(pts, sc)
+    if windows == "edge":
+        from zolt_tpu_torch.curve import host
+
+        live = [q for q in pts if q is not None]
+        E = _edge_windows(live, n)
+        got = affine_of(pippenger.window_sums(*E))
+        assert got == affine_of(pippenger.window_sums_plain(*E))
+        assert got[:5] == [None, host.scalar_mul(live[0], 255), live[1],
+                           None, host.scalar_mul(live[2], 1 + 65 - 3 + 4)]
 
 
 def test_hyperkzg_on_cuda_verifies(gen):

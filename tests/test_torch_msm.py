@@ -229,6 +229,45 @@ def test_row_msm_matches_native_row_msms(dory_srs, cols, nplanes):
     assert imads == (nz * 11 + 4 * len(polys) * (nplanes - 1) * 7) * 272
 
 
+def test_row_msm_subset_bytes_and_lanes_per_row():
+    """Kernel B's host helpers: the subset-byte indices of the plain
+    version (a weighted sum of bits) and of the wrapper's count (a group's
+    8 scalars read as one int64 word, as the kernel reads them) both equal
+    the JAX package's (np.packbits a plane); the count skips zero bytes
+    and identity table entries; lanes_per_row gives 4 lanes to rows whose
+    points fill a quarter of their slots or more, 8 to sparser ones."""
+    from types import SimpleNamespace
+
+    from zolt_tpu.msm import rows_device as jax_rows
+
+    rng = np.random.default_rng(9)
+    for cols, nplanes in ((8, 1), (64, 4), (256, 8)):
+        vals = rng.integers(0, 1 << nplanes, (9, cols), dtype=np.uint8)
+        want = jax_rows.DeviceRowMSM._plane_indices(
+            SimpleNamespace(nch=cols // 8), vals, nplanes)
+        got = rows_device._plane_indices(torch.from_numpy(vals), nplanes)
+        assert np.array_equal(got.numpy(), want)
+        got = rows_device._subset_bytes(torch.from_numpy(vals), nplanes)
+        assert np.array_equal(got.numpy(), want % 256)
+    valid = torch.ones(8 * 256, dtype=torch.uint8)
+    valid[256 + 3] = 0                       # an identity table entry
+    vals = torch.zeros((1, 2, 64), dtype=torch.uint8)
+    vals[0, 0, 8:10] = 1                     # group 1, subset 3: skipped
+    vals[0, 1, :8] = 1
+    assert rows_device.count_nonzero(vals, valid, 1) == 1
+
+    lanes = rows_device.lanes_per_row
+    assert lanes(0, 64, 128) == 8
+    # the smoke's one-hot cubes (some 46 of 128 slots) and compat matrices
+    # (four planes of 32 nearly full groups): dense
+    assert lanes(1894104, 40960, 128) == lanes(1011867, 8192, 128) == 4
+    assert lanes(16, 1, 64) == 4 and lanes(15, 1, 64) == 8
+    # the T = 2^16 proves' launches: 13.2, 17.2 and 6.4 points a row
+    assert lanes(501374, 37888, 128) == lanes(141004, 8192, 128) == 8
+    assert lanes(8168, 1280, 256) == 8
+    assert set(rows_device.LANES) == {4, 8}
+
+
 def test_row_msm_engine_needs_the_native_tables(dory_srs, monkeypatch):
     monkeypatch.setattr(native, "g1_subset_tables_mont", lambda pts: None)
     with pytest.raises(RuntimeError, match="native C tier"):

@@ -59,16 +59,48 @@ def test_device_prove_matches_jax_bytes(tmp_path, monkeypatch, guest):
 
 
 def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Every option prove_jolt does not honour raises; stage1_backend is
+    honoured on either backend (stage 1's remaining rounds on the tier it
+    names, the JAX package's bytes), never ignored."""
+    from zolt_tpu_torch.zkvm import streaming_outer
+
     path = str(tmp_path / "g.elf")
     with open(path, "wb") as f:
         f.write(_golden_array_elf())
     with pytest.raises(NotImplementedError, match="mesh"):
         prove_jolt(path, backend="mesh", device="cpu")
+    for backend in ("device", "host"):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            prove_jolt(path, backend=backend, device="cpu",
+                       stage1_backend="mesh")
+        with pytest.raises(ValueError, match="stage1_backend"):
+            prove_jolt(path, backend=backend, device="cpu",
+                       stage1_backend="gpu")
     with pytest.raises(ValueError, match="explicit device"):
         prove_jolt(path, backend="device", device=None)
+    with pytest.raises(ValueError, match="explicit device"):
+        prove_jolt(path, backend="host", device=None, stage1_backend="device")
     for backend in ("gpu", None):
         with pytest.raises(ValueError, match="'device' or 'host'"):
             prove_jolt(path, backend=backend)
+    # the tier each stage-1 prover was built for
+    tiers = []
+    init = streaming_outer.StreamingOuterProver.__init__
+
+    def spy(self, *a, backend="host", **kw):
+        tiers.append(backend)
+        init(self, *a, backend=backend, **kw)
+
+    monkeypatch.setattr(streaming_outer.StreamingOuterProver, "__init__", spy)
+    monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "0")
+    ref = jax_prove_jolt(path).conv.proof.serialize_with_dory()
+    for backend, s1 in (("host", "device"), ("device", "host")):
+        tiers.clear()
+        got = prove_jolt(path, backend=backend, device="cpu",
+                         stage1_backend=s1)
+        assert got.conv.proof.serialize_with_dory() == ref
+        # the first prover runs the UniSkip round, the second the rest
+        assert tiers[-1] == s1
     # the default is the GPU, and without one it raises: no fallback, in
     # either mode
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)

@@ -5,7 +5,12 @@
 // curve is y^2 = x^3 + 3 (a = 0), so the formulas are the EFD's a = 0
 // ones: dbl-2009-l (7 products), add-2007-bl (16) and its mixed form
 // madd-2007-bl with Z2 = 1 (11). The products are field_ptx.cuh's CIOS
-// mont_mul over FpMod.
+// mont_mul over FpMod, called and not inlined: a product is some 640
+// instructions, so a kernel that inlines the 11-16 of a point formula in
+// a loop spans over 100 KB of code and misses the instruction cache. One
+// called copy keeps a kernel's loop in the cache and its registers under
+// 100: the same words out, and on an H100 kernel B 1.2x to 3.1x faster,
+// the more so the more lanes a row (experiments/g1_kernels/run.sh).
 //
 // jac_double and jac_add give the words of the JAX package's pt_double and
 // pt_add (zolt_tpu/curve/device.py) for every input: those compute every
@@ -27,7 +32,7 @@ struct Jac {
     Fe x, y, z;
 };
 
-__device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
+static __device__ __noinline__ Fe mul(const Fe& a, const Fe& b) {
     return zfr::mont_mul<zfr::FpMod>(a, b);
 }
 __device__ __forceinline__ Fe sqr(const Fe& a) { return mul(a, a); }

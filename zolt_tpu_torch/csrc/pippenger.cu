@@ -21,12 +21,21 @@
 // warp takes one bucket: its lanes walk the segment with mixed additions
 // (the points are affine), N adds in all, and meet by shuffles.
 //
-// D, window_sums: for each window, Σ_b b · S_b by the running sum
-// (acc += S_b, tot += acc, b from 255 down to 1). Replaces
-// pippenger._window_sums, a lax.scan of 255 steps batched over the
-// windows. One thread a window, 510 Jacobian additions in sequence: a
-// latency chain, slow but small beside C. The 32 window totals are
-// combined on the host.
+// D, window_sums: for each window, Σ_b b · S_b. Replaces
+// pippenger._window_sums, a lax.scan of 255 running-sum steps (acc += S_b,
+// tot += acc) batched over the windows: 510 Jacobian additions in one
+// serial chain a window, which on a GPU is one thread a window and one
+// chain of latency with the rest of the card idle. Here by bit planes,
+// as window_sums_plain computes it: Σ_b b·S_b = Σ_{k<8} 2^k · T_k, T_k the
+// sum of the 128 buckets whose index has bit k set. A block takes a
+// window and warp k its T_k: each lane adds its four buckets in a tree
+// of two levels, the warp's lanes meet in five levels of shuffles, the
+// warp doubles its sum k times, and the eight 2^k · T_k meet in three
+// more levels. The chain is 10 additions and 7 doublings deep (209
+// products) instead of 510 additions (8160); a window takes 1023
+// additions and 28 doublings in all, twice the running sum's, across 256
+// threads. An empty bucket (Z = 0) costs a compare, no product. The 32
+// window totals are combined on the host.
 //
 // Bound on Hopper: operations. A mixed addition is 11 Montgomery products
 // (about 3000 IMADs) for 68 bytes read.
@@ -68,18 +77,51 @@ digits_kernel(const uint32_t* __restrict__ words, long long n,
     zfr::store(out, i, zfr::mont_mul(zfr::load(words, i), one));
 }
 
-__global__ void window_kernel(const uint32_t* bx, const uint32_t* by,
-                              const uint32_t* bz, int nwin, uint32_t* ox,
-                              uint32_t* oy, uint32_t* oz) {
-    const int w = blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= nwin) return;
-    zg1::Jac acc = zg1::identity(), tot = zg1::identity();
-    for (int b = BUCKETS - 1; b > 0; --b) {
-        acc = zg1::jac_add(acc, zg1::load_jac(bx, by, bz,
-                                              (long long)w * BUCKETS + b));
-        tot = zg1::jac_add(tot, acc);
+constexpr int WINDOW_BITS = 8;           // a warp a bit of the digit
+
+// The point over the lanes of each aligned group of `width` lanes, in
+// every lane of the group (a butterfly). Every lane of the warp calls it.
+__device__ __forceinline__ zg1::Jac lanes_sum(zg1::Jac acc, int width) {
+    for (int off = width / 2; off > 0; off >>= 1) {
+        zg1::Jac o;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            o.x.w[i] = __shfl_xor_sync(0xffffffffu, acc.x.w[i], off);
+            o.y.w[i] = __shfl_xor_sync(0xffffffffu, acc.y.w[i], off);
+            o.z.w[i] = __shfl_xor_sync(0xffffffffu, acc.z.w[i], off);
+        }
+        acc = zg1::jac_add(acc, o);
     }
-    zg1::store_jac(ox, oy, oz, w, tot);
+    return acc;
+}
+
+__global__ void __launch_bounds__(WINDOW_BITS * 32)
+window_kernel(const uint32_t* __restrict__ bx,
+              const uint32_t* __restrict__ by,
+              const uint32_t* __restrict__ bz, uint32_t* ox, uint32_t* oy,
+              uint32_t* oz) {
+    __shared__ zg1::Jac part[WINDOW_BITS];
+    const int w = blockIdx.x;
+    const int k = threadIdx.x / 32, lane = threadIdx.x % 32;
+    // the i-th of the 128 bucket indices with bit k set
+    const auto bucket = [k, w](int i) {
+        const int b = ((i >> k) << (k + 1)) | (1 << k) | (i & ((1 << k) - 1));
+        return (long long)w * BUCKETS + b;
+    };
+    const zg1::Jac s01 = zg1::jac_add(
+        zg1::load_jac(bx, by, bz, bucket(lane)),
+        zg1::load_jac(bx, by, bz, bucket(lane + 32)));
+    const zg1::Jac s23 = zg1::jac_add(
+        zg1::load_jac(bx, by, bz, bucket(lane + 64)),
+        zg1::load_jac(bx, by, bz, bucket(lane + 96)));
+    zg1::Jac t = lanes_sum(zg1::jac_add(s01, s23), 32);
+    for (int i = 0; i < k; ++i) t = zg1::jac_double(t);
+    if (lane == 0) part[k] = t;
+    __syncthreads();
+    if (k != 0) return;
+    t = lanes_sum(lane < WINDOW_BITS ? part[lane] : zg1::identity(),
+                  WINDOW_BITS);
+    if (lane == 0) zg1::store_jac(ox, oy, oz, w, t);
 }
 
 }  // namespace
@@ -121,8 +163,8 @@ extern "C" int zg1_window_sums(const void* bx, const void* by, const void* bz,
                                void* stream) {
     if (nwin < 0) return (int)cudaErrorInvalidValue;
     if (nwin == 0) return (int)cudaSuccess;
-    window_kernel<<<(nwin + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)bz, nwin,
+    window_kernel<<<nwin, WINDOW_BITS * 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)bz,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz);
     return (int)cudaGetLastError();
 }

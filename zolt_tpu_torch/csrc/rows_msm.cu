@@ -13,26 +13,30 @@
 // Replaces zolt_tpu/msm/rows_device.py _plane_sums (a gather of every
 // (plane, row, group) table point into HBM, then a log2(groups) tree of
 // batched Jacobian adds, in chunks of SLOT_CAP points) and _horner_planes
-// (Horner over the planes by batched doublings). Here one warp takes one
-// row: each lane forms its groups' subset bytes from the row's u8 scalars
-// in registers (no index planes), runs Horner over the planes on its own
-// accumulator (doubling distributes over the sum, so each lane may), adds
-// the table points with mixed additions, skipping the identity entries
-// (byte 0, and sums that cancel), and the warp's 32 partial sums meet by
-// shuffles. One Jacobian point a row goes out. Nothing is gathered into
-// device memory, so nothing is chunked.
+// (Horner over the planes by batched doublings).
 //
 // Bound on Hopper: operations. A mixed addition is 11 Montgomery products
-// of 272 IMADs for 64 bytes of table and 8 of scalars; the one-hot cubes of
-// sound mode have few non-zero bytes, and their rows are cheap.
+// of 272 IMADs for 64 bytes of table and 8 of scalars. The rows are
+// sparse and skewed: the sound prove's one-hot cubes average 13 non-zero
+// subset bytes a row among 128 groups, most rows none and the rest near
+// all; a compat row has up to 128 over 32 groups and four planes. So a
+// row gets the lanes its work needs, LANES of them (4 or 8, chosen by the
+// wrapper from the density of the points it counts): lane j of a row
+// takes a contiguous share of the row's groups, skips ahead to its next
+// non-zero subset byte whose table entry is not the identity (a cheap
+// scan over the u8 scalars), and only then adds, so the lanes of a warp
+// issue their mixed additions together and a warp carries 32 / LANES
+// rows. Horner over the planes runs on each lane's accumulator (doubling
+// distributes over the sum). The row's lanes meet in log2(LANES) levels
+// of shuffles. One Jacobian point a row goes out; nothing is gathered
+// into device memory.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;           // four rows a block
-constexpr int ROWS_A_BLOCK = THREADS / 32;
+constexpr int THREADS = 128;
 
 // bit k of each of the 8 bytes of v, packed: bit j from byte j. The
 // multiply moves byte j's bit (at 8j) to bit 56 + j; no two partial
@@ -42,49 +46,85 @@ __device__ __forceinline__ uint32_t subset_byte(uint64_t v, int k) {
     return (uint32_t)((m * 0x0102040810204080ull) >> 56);
 }
 
+template <int LANES>
 __global__ void __launch_bounds__(THREADS)
 row_msm_kernel(const uint8_t* __restrict__ vals, long long rows, int cols,
                int nplanes, const uint32_t* __restrict__ table,
                const uint8_t* __restrict__ valid, uint32_t* ox, uint32_t* oy,
                uint32_t* oz) {
-    const long long row = (long long)blockIdx.x * ROWS_A_BLOCK +
-                          threadIdx.x / 32;
-    if (row >= rows) return;               // whole warps only
-    const int lane = threadIdx.x % 32;
+    const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+    const long long row = t / LANES;
+    const int j = threadIdx.x % LANES;
+    const bool live = row < rows;          // dead lanes still shuffle
     const int nch = cols / 8;
-    const uint64_t* v = reinterpret_cast<const uint64_t*>(vals + row * cols);
+    const int per = (nch + LANES - 1) / LANES;
+    const int g0 = min(nch, j * per), g1 = min(nch, g0 + per);
+    const uint64_t* v =
+        reinterpret_cast<const uint64_t*>(vals + (live ? row : 0) * cols);
     zg1::Jac acc = zg1::identity();
-    for (int k = nplanes - 1; k >= 0; --k) {
+    for (int k = nplanes - 1; live && k >= 0; --k) {
         if (k != nplanes - 1) acc = zg1::jac_double(acc);
-        for (int g = lane; g < nch; g += 32) {
-            const uint32_t s = subset_byte(v[g], k);
-            const long long e = (long long)g * 256 + s;
-            if (s == 0 || !valid[e]) continue;
-            const zfr::Fr x = zfr::load(table, 2 * e);
-            const zfr::Fr y = zfr::load(table, 2 * e + 1);
-            acc = zg1::jac_add_affine(acc, x, y);
+        for (int g = g0;; ++g) {
+            long long e = 0;
+            for (; g < g1; ++g) {          // the next point to add
+                const uint32_t s = subset_byte(v[g], k);
+                e = (long long)g * 256 + s;
+                if (s != 0 && valid[e]) break;
+            }
+            if (g >= g1) break;
+            acc = zg1::jac_add_affine(acc, zfr::load(table, 2 * e),
+                                      zfr::load(table, 2 * e + 1));
         }
     }
-    acc = zg1::warp_sum(acc);
-    if (lane == 0) zg1::store_jac(ox, oy, oz, row, acc);
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+        zg1::Jac o;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            o.x.w[i] = __shfl_xor_sync(0xffffffffu, acc.x.w[i], off);
+            o.y.w[i] = __shfl_xor_sync(0xffffffffu, acc.y.w[i], off);
+            o.z.w[i] = __shfl_xor_sync(0xffffffffu, acc.z.w[i], off);
+        }
+        acc = zg1::jac_add(acc, o);
+    }
+    if (live && j == 0) zg1::store_jac(ox, oy, oz, row, acc);
+}
+
+template <int LANES>
+int launch(const void* vals, long long rows, int cols, int nplanes,
+           const void* table, const void* valid, void* ox, void* oy,
+           void* oz, void* stream) {
+    const long long grid = (rows * LANES + THREADS - 1) / THREADS;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    row_msm_kernel<LANES><<<(unsigned)grid, THREADS, 0,
+                            (cudaStream_t)stream>>>(
+        (const uint8_t*)vals, rows, cols, nplanes, (const uint32_t*)table,
+        (const uint8_t*)valid, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// vals: (rows, cols) u8 scalars below 2^nplanes, 8-byte aligned; table:
-// (cols / 8 * 256, 16) int32, an entry's x words then its y words; valid:
-// (cols / 8 * 256,) u8; out: three (rows, 8) int32 arrays, 16-byte aligned.
-// Returns cudaGetLastError() after the launch.
+// vals: (rows, cols) u8 scalars below 2^nplanes, 8-byte aligned; lanes: a
+// row's lanes, 4 or 8; table: (cols / 8 * 256, 16) int32, an
+// entry's x words then its y words; valid: (cols / 8 * 256,) u8; out:
+// three (rows, 8) int32 arrays, 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int zg1_row_msm(const void* vals, long long rows, int cols,
-                           int nplanes, const void* table, const void* valid,
-                           void* ox, void* oy, void* oz, void* stream) {
+                           int nplanes, int lanes, const void* table,
+                           const void* valid, void* ox, void* oy, void* oz,
+                           void* stream) {
     if (rows < 0 || cols < 8 || cols % 8 || nplanes < 1 || nplanes > 8)
         return (int)cudaErrorInvalidValue;
-    const long long grid = (rows + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK;
-    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     if (rows == 0) return (int)cudaSuccess;
-    row_msm_kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)vals, rows, cols, nplanes, (const uint32_t*)table,
-        (const uint8_t*)valid, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz);
-    return (int)cudaGetLastError();
+    switch (lanes) {
+#define ZG1_LANES(n)                                                      \
+    case n:                                                               \
+        return launch<n>(vals, rows, cols, nplanes, table, valid, ox, oy, \
+                         oz, stream);
+        ZG1_LANES(4) ZG1_LANES(8)
+#undef ZG1_LANES
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }

@@ -11,8 +11,9 @@
      searchsorted finds each bucket's segment (`bucket_plan`);
   3. each bucket's points are summed (`bucket_sums`: kernel C,
      csrc/pippenger.cu, a warp a bucket with mixed additions, N adds);
-  4. each window's Σ_b b·S_b by the running sum (`window_sums`: kernel D,
-     a thread a window);
+  4. each window's Σ_b b·S_b (`window_sums`: kernel D, a block a window
+     and a warp a bit plane: Σ_k 2^k · T_k, T_k the sum of the buckets
+     whose index has bit k set, as `window_sums_plain` computes it);
   5. the 32 window totals are combined on the host (tiny, exact).
 
 The JAX package (zolt_tpu/msm/pippenger.py) cuts the digits from host
@@ -172,8 +173,8 @@ def window_sums_plain(bx, by, bz):
     """The torch version of kernel D (any device): Σ_b b·S_b per window as
     Σ_k 2^k · T_k, T_k the sum of the non-empty buckets whose index has
     bit k set (`_segment_sums` keyed by window and bit), then Horner over
-    the 8 bits. Kernel D's running sum reaches the same points in another
-    order."""
+    the 8 bits. Kernel D sums each T_k by a tree over a warp's lanes:
+    the same points in another order."""
     d = bx.device
     nwin = bx.shape[0] // BUCKETS
     src = torch.nonzero(~limb.is_zero(bz)).reshape(-1)

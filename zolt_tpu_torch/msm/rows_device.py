@@ -15,7 +15,8 @@ points.
 
 `DeviceRowMSM.commit_rows` uploads the u8 scalars and runs kernel B
 (csrc/rows_msm.cu) on CUDA, which forms the subset bytes, sums the table
-points and applies Horner over the planes inside one launch (`row_sums`);
+points and applies Horner over the planes inside one launch (`row_sums`),
+each row on the lanes its density asks (`lanes_per_row`);
 on the CPU `row_sums` runs `row_sums_plain`, JAX's algorithm
 (zolt_tpu/msm/rows_device.py: `_plane_indices`, the gather and tree-add of
 `_plane_sums` in chunks of SLOT_CAP points, `_horner_planes`) in plain
@@ -51,6 +52,18 @@ def _plane_indices(vals: torch.Tensor, nplanes: int) -> torch.Tensor:
     v = vals.to(torch.int64).reshape(rows, nch, GROUP)
     return torch.stack([base + (((v >> k) & 1) * weights).sum(-1)
                         for k in range(nplanes)])
+
+
+def _subset_bytes(vals: torch.Tensor, nplanes: int) -> torch.Tensor:
+    """`_plane_indices` without the group offset, as kernel B forms it
+    (and in an eighth of the memory): a group's 8 scalars are read as one
+    word, byte j at bit 8j, and one multiply gathers bit k of each byte
+    into the top byte (bit 8j to bit 56 + j; the product wraps mod 2^64,
+    and no two partial products share a bit)."""
+    words = vals.contiguous().view(torch.int64)
+    return torch.stack([
+        (((words >> k) & 0x0101010101010101) * 0x0102040810204080) >> 56
+        & 0xFF for k in range(nplanes)])
 
 
 def _plane_sums_plain(tx, ty, tz, idx):
@@ -114,16 +127,35 @@ def work(nonzero: int, rows: int, cols: int, nplanes: int) -> tuple[int, int]:
 def count_nonzero(vals, valid, nplanes: int) -> int:
     """The table points kernel B adds for vals (npoly, rows, cols): the
     non-zero subset bytes whose table entry is not the identity."""
-    idx = _plane_indices(vals.reshape(-1, vals.shape[-1]), nplanes)
-    return int(((idx % 256 != 0) & valid.bool()[idx]).sum())
+    subset = _subset_bytes(vals.reshape(-1, vals.shape[-1]), nplanes)
+    base = torch.arange(subset.shape[-1], device=vals.device) * 256
+    return int(((subset != 0) & valid.bool()[base + subset]).sum())
+
+
+# Kernel B's launch shapes: the lanes a row takes. Lane j of a row takes
+# the j-th contiguous share of its groups, and the row's lanes meet in
+# log2(lanes) levels of full additions. Dense rows spread evenly and spare
+# the levels at 4 lanes; sparse ones (the sound prove's one-hot cubes,
+# most rows empty and the rest near full) need 8 so that a warp's heavy
+# rows spread over more lanes. The threshold is from chip_smoke.py's
+# lanes sweeps on one H100.
+LANES = (4, 8)
+
+
+def lanes_per_row(nonzero: int, rows: int, slots: int) -> int:
+    """The lanes a row takes in kernel B: 4 where the `nonzero` points
+    fill at least a quarter of the rows' `slots` (planes x groups a row),
+    else 8."""
+    return 4 if 4 * nonzero >= rows * slots else 8
 
 
 def row_sums(vals: torch.Tensor, table: torch.Tensor, valid: torch.Tensor,
              nplanes: int):
     """Row MSMs of vals (npoly, rows, cols) uint8 against a subset table:
     kernel B on CUDA tensors, `row_sums_plain` on CPU tensors. Returns
-    three (npoly, rows, 8) Jacobian word tensors. A launch adds the work
-    its data needs (`work`, `count_nonzero`) to `row_sums.counts`."""
+    three (npoly, rows, 8) Jacobian word tensors. The kernel takes
+    `lanes_per_row` of the points it adds lanes a row. A launch adds the
+    work its data needs (`work`, `count_nonzero`) to `row_sums.counts`."""
     if vals.dtype != torch.uint8 or vals.dim() != 3:
         raise ValueError(f"row_sums takes (npoly, rows, cols) uint8, got "
                          f"{vals.dtype} {tuple(vals.shape)}")
@@ -139,16 +171,18 @@ def row_sums(vals: torch.Tensor, table: torch.Tensor, valid: torch.Tensor,
                          f"{table.device}, valid on {valid.device})")
     vals = vals.contiguous()
     total = npoly * rows
+    nonzero = count_nonzero(vals, valid, nplanes)
+    lanes = lanes_per_row(nonzero, total, nplanes * cols // GROUP)
     outs = [torch.empty((total, 8), dtype=torch.int32, device=d)
             for _ in range(3)]
     with torch.cuda.device(d):
         rc = _build.kernels().lib.zg1_row_msm(
-            vals.data_ptr(), total, cols, nplanes, table.data_ptr(),
+            vals.data_ptr(), total, cols, nplanes, lanes, table.data_ptr(),
             valid.data_ptr(), *[o.data_ptr() for o in outs],
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"row_msm ({total} rows of {cols})")
-    nbytes, imads = work(count_nonzero(vals, valid, nplanes), total, cols,
-                         nplanes)
+    _build.check(rc, f"row_msm ({total} rows of {cols}, {lanes} lanes a "
+                     f"row)")
+    nbytes, imads = work(nonzero, total, cols, nplanes)
     c = row_sums.counts
     c["launches"] += 1
     c["rows"] += total

@@ -22,7 +22,7 @@ pass folds by it and evaluates the folded tables (the first round only
 evaluates). Reading the tables (final_values, the host handoff) flushes a
 pending fold by a fold-only pass. Rounds whose live prefix is at most
 `tail_n()` finish on the host FrVec tier. The mesh backend
-(MeshOuterRounds) is not ported yet (ROADMAP Queue 1 item 13).
+(MeshOuterRounds) is not ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

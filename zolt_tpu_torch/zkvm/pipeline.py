@@ -41,7 +41,7 @@ class JoltPipelineResult:
 def prove_jolt(elf_path: str, *, memory_size: int = 32768,
                srs=None, golden_commitments: list[bytes] | None = None,
                stages: int = 7, with_joint_proof: bool = False,
-               sound: bool = False, stage1_backend: str = "host",
+               sound: bool = False, stage1_backend: str | None = None,
                mesh=None, device="cuda",
                backend: str = "device") -> JoltPipelineResult:
     """Full Jolt-format proof for an ELF. `golden_commitments` replaces the
@@ -56,23 +56,37 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     every round and commitment on the host C tier. All give the same
     bytes.
 
+    stage1_backend (None: as `backend`) runs stage 1's remaining rounds
+    on "device" (on `device`, as the JAX package's stage1_backend="device"
+    does) or on "host", whatever the other stages use.
+
     sound=True proves the real stages 5-12 in place of the reference's
     zero stages and binds every committed claim with one PCS batch opening
     (pcs/batch.py), whose reduction sumcheck runs on `device` too."""
-    if backend == "mesh" or mesh is not None:
+    if "mesh" in (backend, stage1_backend) or mesh is not None:
         raise NotImplementedError(
-            "backend='mesh' is not ported yet (ROADMAP Queue 1 item 13)")
+            "backend='mesh' and stage1_backend='mesh' are not ported yet "
+            "(ROADMAP Queue 1 item 6)")
     if backend not in ("device", "host"):
         raise ValueError(f"backend {backend!r}: 'device' or 'host'")
-    if backend == "device":
+    if stage1_backend not in (None, "device", "host"):
+        raise ValueError(f"stage1_backend {stage1_backend!r}: 'device', "
+                         f"'host' or None")
+    stage1_backend = stage1_backend or backend
+    if "device" in (backend, stage1_backend):
         if device is None:
-            raise ValueError("backend='device' needs an explicit device")
+            raise ValueError("backend='device' and stage1_backend='device' "
+                             "need an explicit device")
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("prove_jolt runs on the GPU by default and "
                                "there is no CUDA device; pass device='cpu' "
                                "or backend='host'")
-    else:
-        backend = device = None         # the stages' spelling of the host tier
+    # stage 1 takes `device` whenever it runs there; the commitments and
+    # the batch opening only with backend="device"
+    stage1_device = device if "device" in (backend, stage1_backend) else None
+    stage_device = device if backend == "device" else None
+    if backend == "host":
+        backend = None                  # the stages' spelling of the host tier
     # sound mode traces div-family instructions as virtual sequences
     # (vm/virtual.py) so every lookup is index-bound; reference-compat
     # traces keep the reference's direct div/rem rows
@@ -127,14 +141,14 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
                                       len(emu.ram.trace), srs=srs, sound=sound,
                                       log_ram_k=LOG_RAM_K,
                                       start_address=emu.device.layout.lowest_address(),
-                                      bc_index=bc_index, device=device)
+                                      bc_index=bc_index, device=stage_device)
         commitment_bytes = list(phase.commitments)
 
     tau = derive_tau(transcript, n_cycle_vars)
     conv = convert_with_transcript(padded, tau, transcript, emulator=emu,
                                    log_ram_k=LOG_RAM_K, stages=stages, sound=sound,
                                    stage1_backend=stage1_backend,
-                                   device=device, bc_index=bc_index,
+                                   device=stage1_device, bc_index=bc_index,
                                    backend=backend)
 
     proof = conv.proof
@@ -197,7 +211,8 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
         with metrics.stage("batch_opening"):
             bproof = batch.prove_batch_opening(transcript, claims, phase.srs,
                                                phase.global_num_vars,
-                                               backend=backend, device=device)
+                                               backend=backend,
+                                               device=stage_device)
         proof.batch_opening = batch.serialize_batch_opening(bproof)
     if with_joint_proof:
         proof.joint_opening_proof = build_joint_opening_proof(

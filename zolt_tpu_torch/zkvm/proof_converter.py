@@ -210,7 +210,7 @@ class JoltConversion:
 def convert_with_transcript(padded_steps, tau: list[int], transcript,
                             emulator=None, log_ram_k: int = 16,
                             stages: int = 7, sound: bool = False,
-                            stage1_backend: str = "host",
+                            stage1_backend: str | None = None,
                             device=None, bc_index=None,
                             backend: str | None = None) -> JoltConversion:
     """Drive the Jolt proof stages implemented so far. Pass the finished
@@ -243,7 +243,7 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
         dev_store = WitnessStore(raw_cols, len(padded_steps), device=device)
 
     with metrics.stage("stage1"):
-        s1_backend = backend if backend is not None else stage1_backend
+        s1_backend = stage1_backend or backend or "host"
         conv.stage1 = prove_stage1_jolt(padded_steps, tau, transcript,
                                         witness_cols=wcols,
                                         backend=s1_backend, device=device)
