@@ -84,7 +84,23 @@ launches there (the profiled prove's torch.profiler figure beside it).
 B's and D's device ms before their redesign, recorded figures, are
 printed beside this run's on lines of their own.
 After phase 5:
-6. commit: the commitment phase alone (`commit_and_absorb`) in each mode
+6. verify: the port's verifier (zkvm/jolt_verifier.py, host Python over
+   ints; no JAX on the card's machine) on the port's own proofs of phases 4
+   and 5, their canonical bytes through zkvm/jolt_deserialize.py: the
+   tail-0 sound proof must verify under the strict default, the compat
+   proof under allow_reference_compat, each timed warm (the Dory SRS the
+   prove cached) and cold (the SRS cache emptied, then restored); the sound
+   proof with a stage-1 round poly +1 must raise VerifyError.
+7. cli: `python -m zolt_tpu_torch prove <elf> --jolt-format --sound -o
+   <file>`, through the CLI's main() in this process with its default
+   backend (the GPU; the host tail pinned to 0 as in phases 4-5), on the
+   sum-loop guest at T = 2^12: every kernel of PROVE_PATH must launch, and
+   the file's sha256 must equal JAX_CLI_SOUND_DIGEST_T12 (the JAX
+   package's CLI on the host tier). Then, each in a process of its own,
+   `python3 -m zolt_tpu_torch verify <file> --elf <elf>` must exit 0 with
+   PASSED, a copy with one byte flipped must exit 1 with FAILED, and
+   `python3 -m zolt_tpu_torch info` must name the card.
+8. commit: the commitment phase alone (`commit_and_absorb`) in each mode
    on the device tier and the host C tier in three alternating pairs, its
    seconds split into the row MSMs and the pairings, the commitments
    equal; a first device commit gives kernel B's work in the phase alone
@@ -92,7 +108,7 @@ After phase 5:
    torch.profiler recorded, and its inputs (the path's own density) hold
    kernel B to its plain version at every lanes-a-row, with a sweep of
    device ms.
-7. kzg: HyperKZG at 2^18 on the card: commit (of a tensor on the card),
+9. kzg: HyperKZG at 2^18 on the card: commit (of a tensor on the card),
    open and verify, the commitment equal to the native C MSM; kernels C,
    D and E must launch (each also timed by CUDA events there).
 
@@ -121,6 +137,11 @@ JAX_DIGEST_T16 = (
 # (tests/test_torch_slice.py recomputes it too).
 JAX_SOUND_DIGEST_T16 = (
     "643d621c3ef83736f83ce17bfb510b76579101b0d4cbc259ce2e54072682bcd8")
+# sha256 of the file `python -m zolt_tpu prove <elf> --jolt-format --sound
+# --backend host -o <file>` writes for the sum-loop guest at T = 2^12 (the
+# JAX package's CLI on the CPU; tests/test_torch_cli.py recomputes it).
+JAX_CLI_SOUND_DIGEST_T12 = (
+    "3597b4fc5f27c4a01bad819961260912312b4024f9badee8420fb6782329f8c1")
 
 # (name, source, the pallas_call sites it replaces).
 KERNELS = [
@@ -1225,6 +1246,9 @@ def sum_loop_elf(log_t: int) -> bytes:
 
 
 def timed_prove(torch, path: str, **kw):
+    """prove_jolt(path, **kw), timed: the proof's with-Dory bytes (the
+    digests' layout), its seconds, its per-stage seconds and its canonical
+    bytes (the layout the verify phase parses)."""
     from zolt_tpu_torch.utils.log import metrics
     from zolt_tpu_torch.zkvm.pipeline import prove_jolt
 
@@ -1233,8 +1257,10 @@ def timed_prove(torch, path: str, **kw):
     res = prove_jolt(path, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    blob = res.conv.proof.serialize_with_dory()
-    return blob, wall, {k: round(v, 4) for k, v in metrics.timings.items()}
+    proof = res.conv.proof
+    return (proof.serialize_with_dory(), wall,
+            {k: round(v, 4) for k, v in metrics.timings.items()},
+            proof.serialize())
 
 
 def profiled_prove(torch, path: str, out: str | None):
@@ -1254,7 +1280,7 @@ def profiled_prove(torch, path: str, out: str | None):
     with profile(activities=[ProfilerActivity.CUDA]) as p:
         if out:
             cp.enable()
-        _, wall, stages = timed_prove(torch, path)
+        _, wall, stages, _ = timed_prove(torch, path)
         if out:
             cp.disable()
     _, counts = read_launches()
@@ -1527,7 +1553,8 @@ def path_figures(work: dict, dev_ms: dict | None, phase: str,
     return out
 
 
-def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
+def run_sound(torch, log_t: int,
+              profile: str | None) -> tuple[dict, dict, bytes]:
     """The sound prove of the sum-loop guest at T = 2^log_t: with
     prove_jolt's defaults at tail 0 (every round of stages 1-4 and of the
     batch opening on the GPU), timed, with its peak device memory and the
@@ -1537,7 +1564,8 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
     sound prove, and the fold and the k = 2 product evals in its batch
     opening, at no more than 16 groups a launch. With --profile, one more
     tail-0 sound prove under torch.profiler and cProfile. Returns the
-    launches per JSON entry and the path figures."""
+    launches per JSON entry, the path figures and the tail-0 proof's
+    canonical bytes."""
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "sum_loop.elf")
         with open(path, "wb") as f:
@@ -1549,7 +1577,8 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
             torch.cuda.reset_peak_memory_stats()
             with batch_opening_counts(torch) as bo, \
                     launch_events(torch, "zg1_row_msm") as b_ev:
-                dev, dev_s, stages = timed_prove(torch, path, sound=True)
+                dev, dev_s, stages, canonical = timed_prove(torch, path,
+                                                            sound=True)
             peak = torch.cuda.max_memory_allocated()
             launches, work = read_launches()
             say("sound", f"kernel B in the sound prove by CUDA events: "
@@ -1568,8 +1597,8 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         finally:
             del os.environ["ZOLT_TPU_DEVICE_TAIL"]
         reset_launches()
-        host, host_s, host_stages = timed_prove(torch, path, sound=True,
-                                                backend="host")
+        host, host_s, host_stages, _ = timed_prove(torch, path, sound=True,
+                                                   backend="host")
         host_launches, _ = read_launches()
         say("sound", f"sound host-tier prove: {host_s:.3f} s {host_stages}; "
                      f"launches {host_launches}")
@@ -1609,7 +1638,7 @@ def run_sound(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
     else:
         say("sound", f"{len(dev)} sound proof bytes equal; sha256 {digest} "
                      f"(no JAX digest for T = 2^{log_t})")
-    return launches, figures
+    return launches, figures, canonical
 
 
 def profiled_sound_prove(torch, path: str, out: str) -> dict:
@@ -1628,7 +1657,7 @@ def profiled_sound_prove(torch, path: str, out: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as p:
             cp.enable()
-            _, wall, stages = timed_prove(torch, path, sound=True)
+            _, wall, stages, _ = timed_prove(torch, path, sound=True)
             cp.disable()
     rows = p.key_averages()
     try:
@@ -1656,9 +1685,11 @@ def profiled_sound_prove(torch, path: str, out: str) -> dict:
     return {"busy_ms": busy, "dev_ms": dev_ms, "bo_ms": bo_ms}
 
 
-def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
-    """The four proves; returns the launches per JSON entry and the path
-    figures per kernel (launches, bound over the counted work, device ms)."""
+def run_slice(torch, log_t: int,
+              profile: str | None) -> tuple[dict, dict, bytes]:
+    """The four proves; returns the launches per JSON entry, the path
+    figures per kernel (launches, bound over the counted work, device ms)
+    and the tail-0 proof's canonical bytes."""
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "sum_loop.elf")
         with open(path, "wb") as f:
@@ -1669,7 +1700,7 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with launch_events(torch, "zg1_row_msm") as b_ev:
-            dev, dev_s, dev_stages = timed_prove(torch, path)
+            dev, dev_s, dev_stages, canonical = timed_prove(torch, path)
         peak = torch.cuda.max_memory_allocated()
         launches, work = read_launches()
         say("slice", f"kernel B in the device prove by CUDA events: {b_ev} "
@@ -1707,7 +1738,8 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
         path_stats["row_plane_sums"]["device_ms_events"] = round(sum(b_ev), 4)
 
         reset_launches()
-        host, host_s, host_stages = timed_prove(torch, path, backend="host")
+        host, host_s, host_stages, _ = timed_prove(torch, path,
+                                                   backend="host")
         host_launches, _ = read_launches()
         say("slice", f"host-tier prove: {host_s:.3f} s {host_stages}; "
                      f"launches {host_launches}")
@@ -1715,7 +1747,7 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
             raise AssertionError(f"the host-tier prove launched kernels: "
                                  f"{host_launches}")
         del os.environ["ZOLT_TPU_DEVICE_TAIL"]
-        dflt, dflt_s, dflt_stages = timed_prove(torch, path)
+        dflt, dflt_s, dflt_stages, _ = timed_prove(torch, path)
         say("slice", f"device prove, default tail (8192): {dflt_s:.3f} s "
                      f"{dflt_stages}")
 
@@ -1737,11 +1769,142 @@ def run_slice(torch, log_t: int, profile: str | None) -> tuple[dict, dict]:
     idle = [k for k in PROVE_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    return launches, path_stats
+    return launches, path_stats, canonical
+
+
+def run_verify(log_t: int, compat: bytes, sound: bytes) -> dict:
+    """The port's verifier on the port's own T = 2^log_t proofs (their
+    canonical bytes through deserialize_jolt_proof): the tail-0 sound proof
+    under the strict default and the compat proof under
+    allow_reference_compat, each warm (the Dory SRS the prove cached) and
+    cold (the SRS cache emptied, so the sound verify derives its SRS on the
+    host; the cache is restored afterwards), and the sound proof with a
+    stage-1 round poly +1, which must raise VerifyError. Returns the
+    seconds of each."""
+    from zolt_tpu_torch.pcs import dory
+    from zolt_tpu_torch.zkvm.jolt_deserialize import deserialize_jolt_proof
+    from zolt_tpu_torch.zkvm.jolt_verifier import VerifyError, verify_jolt
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(log_t))
+
+        def verify(name: str, blob: bytes, **kw) -> None:
+            report = {}
+            t0 = time.perf_counter()
+            ok = verify_jolt(deserialize_jolt_proof(blob), path,
+                             report=report, **kw)
+            secs[name] = round(time.perf_counter() - t0, 4)
+            if ok is not True:
+                raise AssertionError(f"verify_jolt returned {ok!r}")
+            say("verify", f"{name}: {len(blob)} canonical bytes accepted in "
+                          f"{secs[name]} s; report {report}")
+
+        verify("sound_warm", sound)
+        verify("compat_warm", compat, allow_reference_compat=True)
+        cached = dict(dory._SETUP_CACHE)
+        try:
+            for name, blob, kw in (("sound_cold", sound, {}),
+                                   ("compat_cold", compat,
+                                    {"allow_reference_compat": True})):
+                dory._SETUP_CACHE.clear()
+                verify(name, blob, **kw)
+        finally:
+            dory._SETUP_CACHE.clear()
+            dory._SETUP_CACHE.update(cached)
+
+        tampered = deserialize_jolt_proof(sound)
+        tampered.stage1_sumcheck.compressed_polys[3][0] += 1
+        t0 = time.perf_counter()
+        try:
+            verify_jolt(tampered, path)
+        except VerifyError as e:
+            secs["tampered"] = round(time.perf_counter() - t0, 4)
+            say("verify", f"sound proof with a stage-1 round poly +1: "
+                          f"VerifyError in {secs['tampered']} s: {e}")
+        else:
+            raise AssertionError("the verifier accepted a sound proof with a "
+                                 "stage-1 round poly +1")
+    return secs
+
+
+CLI_LOG_T = 12
+
+
+def run_cli(torch, root: str) -> dict:
+    """`zolt_tpu_torch.__main__.main(["prove", elf, "--jolt-format",
+    "--sound", "-o", file])` in this process with the default backend (the
+    GPU) and the host tail at 0, on the sum-loop guest at T = 2^CLI_LOG_T:
+    every kernel of PROVE_PATH must launch, and the file's sha256 must equal
+    the JAX CLI's digest. Then, each in a process of its own,
+    `python3 -m zolt_tpu_torch verify file --elf elf` must exit 0 with
+    PASSED, the same with one byte flipped must exit 1 with FAILED, and
+    `python3 -m zolt_tpu_torch info` must name the card. Returns the
+    launches per JSON entry and the seconds of each command."""
+    from zolt_tpu_torch.__main__ import main as cli_main
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as td:
+        elf = os.path.join(td, f"sum_loop_t{CLI_LOG_T}.elf")
+        with open(elf, "wb") as f:
+            f.write(sum_loop_elf(CLI_LOG_T))
+        out = os.path.join(td, "proof.bin")
+        os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli_main(["prove", elf, "--jolt-format", "--sound", "-o",
+                           out])
+            torch.cuda.synchronize()
+            secs["prove"] = round(time.perf_counter() - t0, 4)
+            launches, _ = read_launches()
+        finally:
+            del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+        if rc != 0:
+            raise AssertionError(f"the CLI's prove exited {rc}")
+        say("cli", f"prove --jolt-format --sound (default backend), "
+                   f"T = 2^{CLI_LOG_T}, tail 0: {secs['prove']} s; launches "
+                   f"{launches}")
+        idle = [k for k in PROVE_PATH if launches[k] <= 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by the CLI's prove: "
+                                 f"{idle}")
+        with open(out, "rb") as f:
+            blob = f.read()
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != JAX_CLI_SOUND_DIGEST_T12:
+            raise AssertionError(f"the CLI's proof sha256 {digest} != "
+                                 f"{JAX_CLI_SOUND_DIGEST_T12}")
+        say("cli", f"{len(blob)} bytes; sha256 equals the JAX CLI's digest")
+        bad = os.path.join(td, "flipped.bin")
+        with open(bad, "wb") as f:
+            f.write(blob[:24] + bytes([blob[24] ^ 1]) + blob[25:])
+
+        def cli(name: str, *argv: str, rc: int, want: str) -> None:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "zolt_tpu_torch",
+                                *argv], cwd=root, capture_output=True,
+                               text=True, timeout=600)
+            secs[name] = round(time.perf_counter() - t0, 4)
+            said = r.stdout.strip()
+            if r.returncode != rc or want not in said:
+                raise AssertionError(f"python3 -m zolt_tpu_torch {name}: "
+                                     f"exit {r.returncode}, stdout {said!r}, "
+                                     f"stderr {r.stderr[-2000:]!r}")
+            say("cli", f"python3 -m zolt_tpu_torch {name}: exit "
+                       f"{r.returncode} in {secs[name]} s: {said}")
+
+        cli("verify", "verify", out, "--elf", elf, rc=0, want="PASSED")
+        cli("verify_flipped", "verify", bad, "--elf", elf, rc=1,
+            want="FAILED")
+        cli("info", "info", rc=0, want=torch.cuda.get_device_name(0))
+    return {"launches": launches, "seconds": secs}
 
 
 def kernels_json(stats: dict, launches: dict, path: dict,
-                 sound_launches: dict, sound: dict, commits: dict,
+                 sound_launches: dict, sound: dict, cli: dict, commits: dict,
                  kzg: dict) -> list:
     """The kernels' entries of the JSON line."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1752,6 +1915,7 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                      launches=launches[name],
                      **{k: stats[name][k] for k in keys},
                      sound_launches=sound_launches[name],
+                     cli_launches=cli["launches"][name],
                      batch_opening_launches=sound["bo_launches"][name])
         for pre, figs in (("path", path), ("sound_path", sound["prove"]),
                           ("batch_opening", sound["batch_opening"])):
@@ -1779,6 +1943,7 @@ def kernels_json(stats: dict, launches: dict, path: dict,
         if on_prove:
             lanes = ("lanes", "lanes_ms")
             entry.update(sound_launches=sound_launches[name],
+                         cli_launches=cli["launches"][name],
                          lanes=stats[name]["lanes"],
                          lanes_ms=stats[name]["lanes_ms"],
                          compat_shape={k: stats[name + "_compat"][k]
@@ -1803,6 +1968,7 @@ def main() -> int:
                          "cProfile and write both profiles to PROFILE.txt, "
                          "and a profiled sound prove to PROFILE_sound.txt")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1836,13 +2002,18 @@ def main() -> int:
     stats: dict = {}
     check_kernels(torch, stats)
     kzg_srs = check_g1(torch, stats)
-    launches, path = run_slice(torch, args.log_t, args.profile)
-    sound_launches, sound = run_sound(torch, args.log_t, args.profile)
+    launches, path, compat_proof = run_slice(torch, args.log_t, args.profile)
+    sound_launches, sound, sound_proof = run_sound(torch, args.log_t,
+                                                   args.profile)
+    verify_s = run_verify(args.log_t, compat_proof, sound_proof)
+    cli = run_cli(torch, root)
+    say("verify", f"seconds: verify {verify_s}; cli {cli['seconds']}")
     commits = commit_pairs(torch, args.log_t)
     kzg = run_kzg(torch, kzg_srs)
 
-    kernels = kernels_json(stats, launches, path, sound_launches, sound,
+    kernels = kernels_json(stats, launches, path, sound_launches, sound, cli,
                            commits, kzg)
+    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Batch opening accumulator, prover side: reduce many committed-polynomial
-opening claims to ONE Dory opening.
+"""Batch opening accumulator: reduce many committed-polynomial opening
+claims to ONE Dory opening, then verify it algebraically.
 
 This is the PCS-binding layer the Jolt-format verifier uses in sound mode:
 every committed-poly evaluation consumed by the stage output checks is
@@ -35,6 +35,7 @@ from dataclasses import dataclass, field as dfield
 import torch
 
 from ..field import limb
+from ..field import tower as tw
 from ..field.params import FR
 from ..native.frvec import FrVec
 from ..parallel import stage_engine
@@ -56,6 +57,30 @@ def mle_eval_be(evals: list[int], point: list[int]) -> int:
         h = len(t) // 2
         t = [(t[i] + p_i * (t[i + h] - t[i])) % P for i in range(h)]
     return t[0]
+
+
+def eq_table_be(point: list[int]) -> list[int]:
+    """eq(point, j) for all j, big-endian (point[0] ↔ MSB of j).
+
+    Each doubling step places the new variable at the HIGH bit, so the
+    last-processed coordinate owns the MSB — iterate reversed(point)."""
+    out = [1]
+    for p_i in reversed(point):
+        p_i %= P
+        nxt = [0] * (2 * len(out))
+        for i, v in enumerate(out):
+            y = v * p_i % P
+            nxt[i + len(out)] = y
+            nxt[i] = (v - y) % P
+        out = nxt
+    return out
+
+
+def eq_eval_be(q: list[int], r: list[int]) -> int:
+    out = 1
+    for a, b in zip(q, r):
+        out = out * ((a * b + (1 - a) * (1 - b)) % P) % P
+    return out
 
 
 def to_dory_point(q_be: list[int]) -> list[int]:
@@ -93,6 +118,10 @@ class BatchOpeningProof:
     round_polys: list[list[int]] = dfield(default_factory=list)  # 3 evals each
     finals: list[int] = dfield(default_factory=list)
     dory_proof: dory.DoryProof | None = None
+
+
+def _pad_point(q: list[int], n: int) -> list[int]:
+    return [0] * (n - len(q)) + [c % P for c in q]
 
 
 def _absorb_round(transcript, evals3: list[int]) -> int:
@@ -381,6 +410,65 @@ def _deg2_eval(evals3: list[int], r: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Verifier
+# ---------------------------------------------------------------------------
+
+def verify_batch_opening(transcript, claims: list[BatchClaim],
+                         proof: BatchOpeningProof, srs: dory.DorySRS,
+                         num_vars: int) -> bool:
+    """Verify the reduction sumcheck + joint Dory opening against the GT
+    commitment bytes in `claims` (points re-derived by the caller from its
+    own challenge bookkeeping, NOT prover data)."""
+    if num_vars % 2 != 0 or len(proof.round_polys) != num_vars:
+        return False
+    if len(proof.finals) != len(claims):
+        return False
+
+    transcript.append_scalar(len(claims))
+    rho = transcript.challenge_scalar()
+    coeffs = []
+    c_pow = 1
+    cur = 0
+    for cl in claims:
+        coeffs.append(c_pow)
+        cur = (cur + c_pow * cl.value) % P
+        c_pow = c_pow * rho % P
+
+    r_star: list[int] = []
+    for evals3 in proof.round_polys:
+        e0, e1 = evals3[0] % P, evals3[1] % P
+        if (e0 + e1) % P != cur:
+            return False
+        r = _absorb_round(transcript, evals3)
+        r_star.append(r)
+        cur = _deg2_eval(evals3, r)
+
+    for v in proof.finals:
+        transcript.append_scalar(v % P)
+
+    # reduction consistency: Σ ρ^i·eq(q_i, r*)·f_i(r*) == final claim
+    acc = 0
+    for c_i, cl, fin in zip(coeffs, claims, proof.finals):
+        q = _pad_point(cl.point_be, num_vars)
+        acc = (acc + c_i * (eq_eval_be(q, r_star) * (fin % P) % P)) % P
+    if acc != cur:
+        return False
+
+    gamma = transcript.challenge_scalar()
+    v_star = 0
+    g_pow = 1
+    c_star = tw.FP12_ONE
+    for cl, fin in zip(claims, proof.finals):
+        v_star = (v_star + g_pow * (fin % P)) % P
+        c_star = tw.fp12_mul(c_star, tw.fp12_pow(tw.fp12_from_bytes(cl.commitment), g_pow))
+        g_pow = g_pow * gamma % P
+
+    pt = to_dory_point(r_star)
+    return dory.verify_with_transcript(srs, c_star, pt, v_star,
+                                       proof.dory_proof, transcript)
+
+
+# ---------------------------------------------------------------------------
 # Serialization (ZOLT-native container section)
 # ---------------------------------------------------------------------------
 
@@ -397,3 +485,25 @@ def serialize_batch_opening(proof: BatchOpeningProof) -> bytes:
     out.append(struct.pack("<I", len(dp)))
     out.append(dp)
     return b"".join(out)
+
+
+def deserialize_batch_opening(data: bytes) -> tuple[BatchOpeningProof, int]:
+    import struct
+
+    n_rounds, n_finals = struct.unpack_from("<II", data, 0)
+    off = 8
+    proof = BatchOpeningProof()
+    for _ in range(n_rounds):
+        rp = []
+        for _ in range(3):
+            rp.append(int.from_bytes(data[off:off + 32], "little"))
+            off += 32
+        proof.round_polys.append(rp)
+    for _ in range(n_finals):
+        proof.finals.append(int.from_bytes(data[off:off + 32], "little"))
+        off += 32
+    (dp_len,) = struct.unpack_from("<I", data, off)
+    off += 4
+    proof.dory_proof = dory.deserialize_dory_proof(data[off:off + dp_len])
+    off += dp_len
+    return proof, off

@@ -31,7 +31,7 @@ from dataclasses import dataclass, field as dfield
 
 from ..field.params import FR
 from ..poly import unipoly
-from .lookups_raf import _absorb_round, _eval2
+from .lookups_raf import _absorb_round, _eval2, eq_point_eval
 from .stage67 import eval_from_hint_any
 
 P = FR.p
@@ -199,6 +199,44 @@ def prove_stage10(transcript, padded_steps, bc_index, slots: list[int],
     return res
 
 
+def verify_stage10(transcript, compressed_polys, hw_io: int,
+                   io_oh_claims: list[int], bc_oh_claims: list[int],
+                   n_cycle_vars: int):
+    from .stage2_batch import eval_from_hint
+
+    nio, nbc = len(io_oh_claims), len(bc_oh_claims)
+    n_rounds = LOG_K_CHUNK + n_cycle_vars
+    r_b = [transcript.challenge_scalar() for _ in range(n_rounds)]
+    r_hw = [transcript.challenge_scalar() for _ in range(n_cycle_vars)]
+    betas = [transcript.challenge_scalar_full() for _ in range(2 * (nio + nbc))]
+    transcript.append_scalar(hw_io % P)
+    bool_betas, hw_betas = betas[:nio + nbc], betas[nio + nbc:]
+    claim = (sum(hw_betas[:nio]) % P * (hw_io % P)
+             + sum(hw_betas[nio:]) % P) % P
+    if len(compressed_polys) != n_rounds:
+        return False, {}
+    challenges = []
+    for cp in compressed_polys:
+        if len(cp) != 3:
+            return False, {}
+        r = _absorb_round(transcript, cp)
+        challenges.append(r)
+        claim = eval_from_hint(cp, claim, r)
+    for v in io_oh_claims + bc_oh_claims:
+        transcript.append_scalar(v % P)
+    # flat index (k << n) | j is bound low-bit-first: the first n
+    # challenges bind the cycle bits (the tiled eq_hw's only dependence)
+    eq_b_end = eq_point_eval(r_b, challenges)
+    eq_hw_end = eq_point_eval(r_hw, challenges[:n_cycle_vars])
+    expected = 0
+    for d, v in enumerate(io_oh_claims + bc_oh_claims):
+        v %= P
+        expected = (expected + bool_betas[d] * (eq_b_end * ((v - v * v) % P))
+                    + hw_betas[d] * (eq_hw_end * v)) % P
+    ok = claim == expected % P
+    return ok, {"challenges": challenges, "r_hw": r_hw, "r_b": r_b}
+
+
 # ---------------------------------------------------------------------------
 # Stage 11: BytecodeReadRaf — batched two-phase read-check over public tables
 # ---------------------------------------------------------------------------
@@ -301,6 +339,51 @@ def prove_stage11(transcript, slots: list[int], log_bc: int,
     return res
 
 
+def verify_stage11(transcript, compressed_polys, wbc_claim: int,
+                   log_bc: int,
+                   instances: list[tuple[list[int], list[int], int]],
+                   n_cycle_vars: int):
+    """instances as in prove_stage11; F tables are evaluated by the
+    verifier itself (public bytecode)."""
+    from .bytecode_tables import mle_eval_table
+
+    m = bc_addr_vars(log_bc)
+    size = 1 << m
+    alphas = [transcript.challenge_scalar_full() for _ in range(len(instances))]
+    claim = 0
+    for a, (_, _, c) in zip(alphas, instances):
+        claim = (claim + a * (c % P)) % P
+    if len(compressed_polys) != m + n_cycle_vars:
+        return False, {}
+    r_addr_msb = []
+    for cp in compressed_polys[:m]:
+        if len(cp) != 2:
+            return False, {}
+        r = _absorb_round(transcript, cp)
+        r_addr_msb.append(r)
+        claim = _eval2(cp, claim, r)
+    r_cycle = []
+    for cp in compressed_polys[m:]:
+        if len(cp) != 2:
+            return False, {}
+        r = _absorb_round(transcript, cp)
+        r_cycle.append(r)
+        claim = _eval2(cp, claim, r)
+    transcript.append_scalar(wbc_claim % P)
+
+    r_addr_le = [0] * m
+    for i, rr in enumerate(r_addr_msb):
+        r_addr_le[m - 1 - i] = rr
+    expected = 0
+    for a, (pt_le, F, _) in zip(alphas, instances):
+        ft = [v % P for v in F] + [0] * (size - len(F))
+        fv = mle_eval_table(ft, r_addr_le)
+        eq_end = eq_point_eval([c % P for c in pt_le], r_cycle)
+        expected = (expected + a * fv % P * eq_end) % P
+    ok = claim == expected * (wbc_claim % P) % P
+    return ok, {"r_addr": r_addr_le, "r_cycle": r_cycle}
+
+
 # ---------------------------------------------------------------------------
 # Stage 12: BytecodeRa virtualization
 # ---------------------------------------------------------------------------
@@ -345,3 +428,24 @@ def prove_stage12(transcript, slots: list[int], log_bc: int,
     for v in res.oh_claims:
         transcript.append_scalar(v)
     return res
+
+
+def verify_stage12(transcript, compressed_polys, oh_claims, log_bc: int,
+                   r_cycle11: list[int], wbc_claim: int, n_cycle_vars: int):
+    bc_d = bc_chunk_count(log_bc)
+    if len(compressed_polys) != n_cycle_vars:
+        return False, []
+    claim = wbc_claim % P
+    challenges = []
+    for cp in compressed_polys:
+        if len(cp) != bc_d + 1:
+            return False, []
+        r = _absorb_round(transcript, cp)
+        challenges.append(r)
+        claim = eval_from_hint_any(cp, claim, r)
+    for v in oh_claims:
+        transcript.append_scalar(v % P)
+    expected = eq_point_eval([c % P for c in r_cycle11], challenges)
+    for v in oh_claims:
+        expected = expected * (v % P) % P
+    return claim == expected, challenges

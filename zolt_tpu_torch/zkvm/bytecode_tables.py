@@ -185,3 +185,13 @@ class BytecodeIndex:
             s = self.raf_spec(k)
             out.append(1 if (s is not None and s.valid_table is not None) else 0)
         return out
+
+
+def mle_eval_table(table: list[int], point_le: list[int]) -> int:
+    """Dense MLE eval of a public slot table at a little-endian point."""
+    vals = [v % P for v in table]
+    for r in point_le:
+        half = len(vals) // 2
+        vals = [(vals[2 * i] + r * (vals[2 * i + 1] - vals[2 * i])) % P
+                for i in range(half)]
+    return vals[0]

@@ -63,6 +63,13 @@ def _absorb_round(transcript, compressed: list[int]) -> int:
     return transcript.challenge_scalar()
 
 
+def eq_point_eval(a: list[int], b: list[int]) -> int:
+    out = 1
+    for x, y in zip(a, b):
+        out = out * ((x * y + (1 - x) * (1 - y)) % P) % P
+    return out
+
+
 def _eval2(compressed2: list[int], hint: int, x: int) -> int:
     c0, c2 = compressed2[0] % P, compressed2[1] % P
     c1 = (hint - 2 * c0 - c2) % P
@@ -784,6 +791,56 @@ def _eval3(compressed3: list[int], hint: int, x: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Stage-8 verifier
+# ---------------------------------------------------------------------------
+
+def verify_stage8(transcript, proof: Stage8Result, lo_claim: int,
+                  left_claim: int, right_claim: int, r_cycle_be: list[int],
+                  n_cycle_vars: int):
+    """Replay the stage-8 transcript; returns (ok, info) where info carries
+    the points/claims consumed by stages 9 and the bytecode read-check."""
+    g = transcript.challenge_scalar_full()
+    if g != proof.gamma % P:
+        return False, {}
+    gammas = [1, g, g * g % P, g * g % P * g % P]
+    transcript.append_scalar(proof.const_claim % P)
+    transcript.append_scalar(proof.valid_rhs % P)
+    claim = (lo_claim + g * left_claim + gammas[2] * right_claim
+             - proof.const_claim + gammas[3] * proof.valid_rhs) % P
+    if len(proof.compressed_addr) != ADDR_VARS:
+        return False, {}
+    if len(proof.compressed_cycle) != n_cycle_vars:
+        return False, {}
+    r_addr_msb_first = []
+    for cp in proof.compressed_addr:
+        if len(cp) != 2:
+            return False, {}
+        r = _absorb_round(transcript, cp)
+        r_addr_msb_first.append(r)
+        claim = _eval2(cp, claim, r)
+    r_cycle = []
+    for cp in proof.compressed_cycle:
+        if len(cp) != 3:
+            return False, {}
+        r = _absorb_round(transcript, cp)
+        r_cycle.append(r)
+        claim = _eval3(cp, claim, r)
+    transcript.append_scalar(proof.w_claim % P)
+    transcript.append_scalar(proof.cs_claim % P)
+    # final identity: claim == eq(rc1, r_cycle) * w * cs
+    eq_end = eq_point_eval(list(reversed([c % P for c in r_cycle_be])), r_cycle)
+    ok = claim == eq_end * (proof.w_claim % P) % P * (proof.cs_claim % P) % P
+    r_addr_le = [0] * ADDR_VARS
+    for i, rr in enumerate(r_addr_msb_first):
+        r_addr_le[ADDR_VARS - 1 - i] = rr
+    info = {"gammas": gammas, "r_addr": r_addr_le, "r_cycle": r_cycle,
+            "w_claim": proof.w_claim % P, "cs_claim": proof.cs_claim % P,
+            "const_claim": proof.const_claim % P,
+            "valid_rhs": proof.valid_rhs % P}
+    return ok, info
+
+
+# ---------------------------------------------------------------------------
 # Stage 9: InstructionRaVirtualization — bind w_claim to the committed
 # one-hot InstructionRa chunks (degree 33 sumcheck over the cycle cube)
 # ---------------------------------------------------------------------------
@@ -854,3 +911,26 @@ def prove_stage9(transcript, padded_steps, r_addr_le: list[int],
     for v in res.oh_claims:
         transcript.append_scalar(v)
     return res
+
+
+def verify_stage9(transcript, compressed_polys, oh_claims, r_cycle8,
+                  w_claim: int, n_cycle_vars: int):
+    from .stage67 import eval_from_hint_any
+
+    if len(compressed_polys) != n_cycle_vars:
+        return False, []
+    claim = w_claim % P
+    challenges = []
+    for cp in compressed_polys:
+        if len(cp) != INSTRUCTION_D + 1:
+            return False, []
+        r = _absorb_round(transcript, cp)
+        challenges.append(r)
+        claim = eval_from_hint_any(cp, claim, r)
+    for v in oh_claims:
+        transcript.append_scalar(v % P)
+    eq_end = eq_point_eval(r_cycle8, challenges)
+    expected = eq_end
+    for v in oh_claims:
+        expected = expected * (v % P) % P
+    return claim == expected, challenges

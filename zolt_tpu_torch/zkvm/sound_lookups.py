@@ -4,7 +4,7 @@ Drives the InstructionReadRaf / InstructionRaVirtualization provers
 (zkvm/lookups_raf.py) and the Booleanity / BytecodeReadRaf / BytecodeRa
 virtualization provers (zkvm/bytecode_raf.py) on the live Fiat-Shamir
 transcript, assembles the public BytecodeReadRaf instance list shared by
-prover and verifier, and serializes the whole block as the proof's
+prover and verifier, and (de)serializes the whole block as the proof's
 optional `lookups_ext` trailing section.
 
 These are the real protocols behind the reference's zero-proof
@@ -30,10 +30,13 @@ from dataclasses import dataclass
 
 from ..field.params import FR
 from .bytecode_raf import (Stage10Result, Stage11Result, Stage12Result,
-                           prove_stage10, prove_stage11, prove_stage12)
+                           bc_chunk_count, prove_stage10, prove_stage11,
+                           prove_stage12, verify_stage10, verify_stage11,
+                           verify_stage12)
 from .bytecode_tables import STATIC_COLS
-from .lookups_raf import (Stage8Result, Stage9Result, const_table,
-                          ctable_values, prove_stage8, prove_stage9)
+from .lookups_raf import (ADDR_VARS, Stage8Result, Stage9Result,
+                          const_table, ctable_values, prove_stage8,
+                          prove_stage9, verify_stage8, verify_stage9)
 
 P = FR.p
 
@@ -125,6 +128,77 @@ def prove_sound_lookups(transcript, padded_steps, bc_index,
 
 
 # ---------------------------------------------------------------------------
+# Verifier
+# ---------------------------------------------------------------------------
+
+def verify_sound_lookups(transcript, slp: SoundLookupsProof, bc_index,
+                         input_eval, rc1_le: list[int], n_cycle_vars: int):
+    """Replay stages 8-12. `input_eval(inp)` returns the verified
+    SpartanOuter claimed evaluation for a witness column (from the proof's
+    opening-claim map — bound by the stage-1 output check). Returns
+    (ok, info) where info carries the PCS-binding points and claims:
+      info["s9_oh"]   = (chunk_points_le, r_cycle9, oh_claims)   InstructionRaOH
+      info["s10"]     = (challenges, io_oh_claims, bc_oh_claims) Booleanity
+      info["s12_oh"]  = (bc_chunk_points_le, r_cycle12, oh_claims) BytecodeRaOH
+    """
+    from ..r1cs.inputs import Inp
+    from .lookups_raf import chunk_points
+    from .bytecode_raf import bc_chunk_points
+
+    lo = input_eval(Inp.LookupOutput) % P
+    lf = input_eval(Inp.LeftLookupOperand) % P
+    rt = input_eval(Inp.RightLookupOperand) % P
+    rc1_be = list(reversed(rc1_le))
+
+    ok8, i8 = verify_stage8(transcript, slp.s8, lo, lf, rt, rc1_be,
+                            n_cycle_vars)
+    if not ok8:
+        return False, {"stage": 8}
+    ok9, ch9 = verify_stage9(transcript, slp.s9.compressed_polys,
+                             slp.s9.oh_claims, i8["r_cycle"],
+                             i8["w_claim"], n_cycle_vars)
+    if not ok9:
+        return False, {"stage": 9}
+    ok10, i10 = verify_stage10(transcript, slp.s10.compressed_polys,
+                               slp.s10.hw_io, slp.s10.io_oh_claims,
+                               slp.s10.bc_oh_claims, n_cycle_vars)
+    if not ok10:
+        return False, {"stage": 10}
+    if len(slp.s10.bc_oh_claims) != bc_chunk_count(bc_index.log_k):
+        return False, {"stage": 10}
+
+    gamma_bc = transcript.challenge_scalar_full()
+    gammas8 = i8["gammas"]
+    rlc = _rlc(gamma_bc, [input_eval(c) for c in RC1_STATIC_COLS])
+    insts = build_instances(bc_index, gamma_bc, gammas8, rc1_le,
+                            i8["r_addr"], i8["r_cycle"], i8["const_claim"],
+                            i8["valid_rhs"], i8["cs_claim"],
+                            i10["r_hw"], slp.s10.hw_io, rlc)
+    # instance claims 2-5 must match the stage-8/10 transcript-checked values
+    ok11, i11 = verify_stage11(transcript, slp.s11.compressed_polys,
+                               slp.s11.wbc_claim, bc_index.log_k, insts,
+                               n_cycle_vars)
+    if not ok11:
+        return False, {"stage": 11}
+    ok12, ch12 = verify_stage12(transcript, slp.s12.compressed_polys,
+                                slp.s12.oh_claims, bc_index.log_k,
+                                i11["r_cycle"], slp.s11.wbc_claim,
+                                n_cycle_vars)
+    if not ok12:
+        return False, {"stage": 12}
+
+    info = {
+        "s9_oh": (chunk_points(i8["r_addr"]), ch9, slp.s9.oh_claims),
+        "s10": (i10["challenges"], slp.s10.io_oh_claims,
+                slp.s10.bc_oh_claims),
+        "s12_oh": (bc_chunk_points(i11["r_addr"],
+                                   bc_chunk_count(bc_index.log_k)),
+                   ch12, slp.s12.oh_claims),
+    }
+    return True, info
+
+
+# ---------------------------------------------------------------------------
 # Serialization (the proof's optional `lookups_ext` section)
 # ---------------------------------------------------------------------------
 
@@ -146,6 +220,30 @@ def _w_vec(out: list, xs: list[int]) -> None:
         _w_scalar(out, x)
 
 
+class _R:
+    def __init__(self, data: bytes):
+        self.d, self.o = data, 0
+
+    def scalar(self) -> int:
+        v = int.from_bytes(self.d[self.o:self.o + 32], "little")
+        self.o += 32
+        return v
+
+    def u32(self) -> int:
+        v = struct.unpack_from("<I", self.d, self.o)[0]
+        self.o += 4
+        return v
+
+    def polys(self) -> list[list[int]]:
+        n, w = struct.unpack_from("<II", self.d, self.o)
+        self.o += 8
+        return [[self.scalar() for _ in range(w)] for _ in range(n)]
+
+    def vec(self) -> list[int]:
+        n = self.u32()
+        return [self.scalar() for _ in range(n)]
+
+
 def serialize_sound_lookups(slp: SoundLookupsProof) -> bytes:
     out: list[bytes] = []
     s8 = slp.s8
@@ -165,3 +263,32 @@ def serialize_sound_lookups(slp: SoundLookupsProof) -> bytes:
     _w_polys(out, slp.s12.compressed_polys)
     _w_vec(out, slp.s12.oh_claims)
     return b"".join(out)
+
+
+def deserialize_sound_lookups(data: bytes) -> SoundLookupsProof:
+    r = _R(data)
+    s8 = Stage8Result()
+    s8.gamma = r.scalar()
+    s8.const_claim = r.scalar()
+    s8.valid_rhs = r.scalar()
+    s8.w_claim = r.scalar()
+    s8.cs_claim = r.scalar()
+    s8.compressed_addr = r.polys()
+    s8.compressed_cycle = r.polys()
+    s9 = Stage9Result()
+    s9.compressed_polys = r.polys()
+    s9.oh_claims = r.vec()
+    s10 = Stage10Result()
+    s10.hw_io = r.scalar()
+    s10.compressed_polys = r.polys()
+    s10.io_oh_claims = r.vec()
+    s10.bc_oh_claims = r.vec()
+    s11 = Stage11Result()
+    s11.wbc_claim = r.scalar()
+    s11.compressed_polys = r.polys()
+    s12 = Stage12Result()
+    s12.compressed_polys = r.polys()
+    s12.oh_claims = r.vec()
+    if r.o != len(data):
+        raise ValueError(f"lookups_ext trailing bytes: {len(data) - r.o}")
+    return SoundLookupsProof(s8, s9, s10, s11, s12)

@@ -29,6 +29,22 @@ P = FR.p
 _NO_RD = {0x23, 0x63}
 
 
+def lt_eval(x_le: list[int], y_le: list[int]) -> int:
+    """LT MLE at two field points (little-endian): Σ_i (1−x_i)·y_i·Π_{k>i}
+    eq(x_k, y_k) — the x < y indicator's multilinear extension."""
+    n = len(x_le)
+    assert len(y_le) == n
+    # suffix products of eq factors
+    suffix = [1] * (n + 1)
+    for k in range(n - 1, -1, -1):
+        eq_k = (x_le[k] * y_le[k] + (1 - x_le[k]) * (1 - y_le[k])) % P
+        suffix[k] = suffix[k + 1] * eq_k % P
+    out = 0
+    for i in range(n):
+        out = (out + (1 - x_le[i]) * y_le[i] % P * suffix[i + 1]) % P
+    return out
+
+
 @dataclass
 class Stage5Result:
     compressed_polys: list[list[int]] = dfield(default_factory=list)

@@ -59,6 +59,13 @@ def _eq_le_bits(r: list[int], idx: int) -> int:
     return out
 
 
+def eq_point_eval(a: list[int], b: list[int]) -> int:
+    out = 1
+    for x, y in zip(a, b):
+        out = out * ((x * y + (1 - x) * (1 - y)) % P) % P
+    return out
+
+
 def slot_per_cycle(padded_steps, start_address: int, log_ram_k: int) -> list:
     """Word-slot index per cycle (None when the cycle has no RAM access) —
     same mapping as the sound stage-2 provers."""
