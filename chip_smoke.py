@@ -99,7 +99,15 @@ After phase 5:
    package's CLI on the host tier). Then, each in a process of its own,
    `python3 -m zolt_tpu_torch verify <file> --elf <elf>` must exit 0 with
    PASSED, a copy with one byte flipped must exit 1 with FAILED, and
-   `python3 -m zolt_tpu_torch info` must name the card.
+   `python3 -m zolt_tpu_torch info` must name the card. The internal and
+   legacy containers the same way: `prove <elf>` (the internal ZOLT v1
+   prover), `prove --legacy --json` and `prove --legacy --gzip` in this
+   process on the card (tail 0), each file's sha256 equal to the JAX
+   CLI's (CLI_CONTAINERS), the internal prove launching every kernel of
+   INTERNAL_PATH and the legacy ones every kernel of LEGACY_PATH; then
+   the CLI's `verify` and `stats` of each file, both in one subprocess
+   (PASSED, and the stats lines), and the internal file with a byte of a
+   stage-1 round poly flipped must exit 1 with FAILED.
 8. commit: the commitment phase alone (`commit_and_absorb`) in each mode
    on the device tier and the host C tier in three alternating pairs, its
    seconds split into the row MSMs and the pairings, the commitments
@@ -111,9 +119,28 @@ After phase 5:
 9. kzg: HyperKZG at 2^18 on the card: commit (of a tensor on the card),
    open and verify, the commitment equal to the native C MSM; kernels C,
    D and E must launch (each also timed by CUDA events there).
+10. legacy: the legacy prover, prove_program(emu, log_k=LEGACY_LOG_K,
+   device="cuda") of the sum-loop guest at T = 2^log_t with the host
+   tail at 0 (every round of its six k = 2 and k = 3 product sumchecks on
+   the card; stage 1's three tables hold 2^21 entries at T = 2^16),
+   under torch.profiler: its seconds by stage, peak device memory, and
+   each kernel's launches, path bound and device ms; stage 1's product
+   evals timed apart. Its serialize() sha256 must equal
+   JAX_LEGACY_DIGEST_T16, every kernel of LEGACY_PATH must launch, the
+   verifier must accept and reject a copy with a stage-1 round poly +1.
+11. internal: the internal ZOLT v1 prover at the CLI's defaults (log_k
+   16, srs_degree 1280) on the card, tail 0, timed by stage under
+   torch.profiler (C, D and E also by CUDA events): its sha256 must equal
+   JAX_INTERNAL_DIGEST_T16, verify_internal must accept, every kernel of
+   INTERNAL_PATH must launch. Then with_openings=True at srs_degree
+   OPENING_SRS (the HyperKZG batch opening on the card; its SRS the
+   first 2^17 powers of the g1 phase's, the same τ): the three
+   commitments equal to the native C MSM's, verify_internal accepting, a
+   copy with the first opened evaluation + 1 failing the pairing check.
 
-The last three lines are the kernels' JSON, the nvidia-smi card line and
-the result JSON.
+The last three lines are the kernels' JSON (every kernel, with each
+path's launches and figures), the nvidia-smi card line and the result
+JSON.
 """
 
 from __future__ import annotations
@@ -142,6 +169,37 @@ JAX_SOUND_DIGEST_T16 = (
 # JAX package's CLI on the CPU; tests/test_torch_cli.py recomputes it).
 JAX_CLI_SOUND_DIGEST_T12 = (
     "3597b4fc5f27c4a01bad819961260912312b4024f9badee8420fb6782329f8c1")
+# sha256 of zolt_tpu's serialization.serialize(prove_program(emu,
+# log_k=LEGACY_LOG_K)) for the sum-loop guest at T = 2^16, on the CPU,
+# the legacy prover's two jitted helpers computed by the JAX package's
+# host tier (XLA compiles them a round shape, minutes and tens of GiB
+# each at this size; tests/test_torch_legacy.py recomputes it). log_k is
+# the CLI's --log-k default: above 10 both packages raise IndexError in
+# stage 2 on this guest, whose RAM accesses outnumber the 2^16 entries of
+# stage 2's eq table.
+LEGACY_LOG_K = 10
+JAX_LEGACY_DIGEST_T16 = (
+    "92cb233e35f2ca15b19e8f7f7409422880e06df5aeaf84c238e6c4071e4b47fb")
+# The CLI's internal and legacy containers at T = 2^CLI_LOG_T: {name:
+# (the prove flags, the sha256 of the file `python -m zolt_tpu prove <elf>
+# <flags> -o <file>` writes)}, JAX's CLI on the CPU (its legacy prover's
+# jitted helpers on its host tier; tests/test_torch_cli.py recomputes
+# them).
+CLI_CONTAINERS = {
+    "internal": ([], "fecfd6ca3b94c591c8a45c6807d16d02"
+                     "a4a0c0b80957945059cc981b01e4506f"),
+    "legacy_json": (["--legacy", "--json"],
+                    "742fbd7e49a6614b3880ee33bdc73710"
+                    "2d17c28c068bb608f79db291f3e5cd3f"),
+    "legacy_gzip": (["--legacy", "--gzip"],
+                    "c8544369c783a6ac1486244d5caa416f"
+                    "1190e57572278aa06885acc95333dfa9"),
+}
+# sha256 of zolt_tpu's prove_internal(emu, padded, image).serialize() (the
+# CLI's defaults: log_k 16, srs_degree 1280) for the same guest
+# (tests/test_torch_internal.py recomputes it).
+JAX_INTERNAL_DIGEST_T16 = (
+    "0b97f20f52182b74bae5a95cb3aa90d908744b3df789c4393c9d6063089a28cb")
 
 # (name, source, the pallas_call sites it replaces).
 KERNELS = [
@@ -175,6 +233,13 @@ PROVE_PATH = ("fold", "product_evals_k2", "product_evals_k3", "gruen_round",
               "row_plane_sums")
 # The kernels the HyperKZG commit and open must launch.
 KZG_PATH = ("bucket_accumulate", "window_sums", "scalar_digits")
+# The kernels the legacy prove (prove_program: every round of its six
+# stages a product sumcheck, k = 2 or 3) must launch.
+LEGACY_PATH = ("fold", "product_evals_k2", "product_evals_k3")
+# The kernels the internal prove (prove_internal) must launch: stage 4's
+# ValEvaluation engine and stage 1's openings (fold, k = 3 evals) and the
+# three commitments (E, then C and D).
+INTERNAL_PATH = ("fold", "product_evals_k3") + KZG_PATH
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1059,9 +1124,7 @@ def run_kzg(torch, kzg) -> dict:
          for _ in range(KZG_LOG_N)]
     words = limb.encode(evals, device="cuda")
     reset_launches()
-    with launch_events(torch, "zg1_window_sums") as d_ev, \
-            launch_events(torch, "zg1_bucket_accumulate") as c_ev, \
-            launch_events(torch, "zg1_scalar_digits") as e_ev, \
+    with g1_events(torch) as events, \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         com = hyperkzg.commit(kzg, words)
@@ -1071,8 +1134,6 @@ def run_kzg(torch, kzg) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches, counts = read_launches()
-    events = {"window_sums": d_ev, "bucket_accumulate": c_ev,
-              "scalar_digits": e_ev}
     ok = hyperkzg.verify(kzg, com, x, hyperkzg._mle_eval(evals, x), proof,
                          Blake2bTranscript(b"kzg"))
     t3 = time.perf_counter()
@@ -1085,18 +1146,8 @@ def run_kzg(torch, kzg) -> dict:
     if idle:
         raise AssertionError(f"kernels not launched on the HyperKZG path: "
                              f"{idle}")
-    dev_ms = recorded_ms(prof, counts, KZG_PATH, "kzg")
-    figures = {}
-    for k in KZG_PATH:
-        c = counts[k]
-        b_ms, b_by = bound(c["bytes"], c["imads"])
-        figures[k] = dict(bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms[k],
-                          device_ms_events=round(sum(events[k]), 4))
-        say("kzg", f"{k} on the HyperKZG path: {c['launches']} launches, "
-                   f"{c['bytes']} bytes, {c['imads']} IMADs, bound "
-                   f"{b_ms:.4f} ms by {b_by}, device {ms_text(dev_ms[k])}; "
-                   f"by CUDA events {figures[k]['device_ms_events']:.4f} ms "
-                   f"over {len(events[k])} launches")
+    figures = g1_path_figures(prof, counts, events, "kzg",
+                              "the HyperKZG path")
     say_prior("kzg", "window_sums_path", "on the HyperKZG path",
               figures["window_sums"]["device_ms"])
     secs = dict(commit=t1 - t0, open=t2 - t1, verify=t3 - t2)
@@ -1105,6 +1156,40 @@ def run_kzg(torch, kzg) -> dict:
                f"seconds (commit and open under torch.profiler; the first "
                f"commit builds the SRS's table) {secs}; launches {launches}")
     return dict(launches=launches, seconds=secs, figures=figures)
+
+
+def g1_path_figures(prof, counts: dict, events: dict, phase: str,
+                    what: str) -> dict:
+    """Per G1 kernel of KZG_PATH: the bound of the work its wrapper counted
+    (`counts`, as read_launches gives them), its device ms by
+    torch.profiler (`prof`; None where the profiler lost a launch) and
+    by CUDA events (`events`, as launch_events yields them). Printed one
+    line a kernel."""
+    dev_ms = recorded_ms(prof, counts, KZG_PATH, phase)
+    figures = {}
+    for k in KZG_PATH:
+        c = counts[k]
+        b_ms, b_by = bound(c["bytes"], c["imads"])
+        figures[k] = dict(launches=c["launches"], bound_ms=b_ms,
+                          bound_by=b_by, device_ms=dev_ms[k],
+                          device_ms_events=round(sum(events[k]), 4))
+        say(phase, f"{k} on {what}: {c['launches']} launches, "
+                   f"{c['bytes']} bytes, {c['imads']} IMADs, bound "
+                   f"{b_ms:.4f} ms by {b_by}, device {ms_text(dev_ms[k])}; "
+                   f"by CUDA events {figures[k]['device_ms_events']:.4f} ms "
+                   f"over {len(events[k])} launches")
+    return figures
+
+
+@contextlib.contextmanager
+def g1_events(torch):
+    """launch_events around kernels C, D and E at once: yields {kernel:
+    the device ms of each of its launches}."""
+    with launch_events(torch, "zg1_window_sums") as d_ev, \
+            launch_events(torch, "zg1_bucket_accumulate") as c_ev, \
+            launch_events(torch, "zg1_scalar_digits") as e_ev:
+        yield {"window_sums": d_ev, "bucket_accumulate": c_ev,
+               "scalar_digits": e_ev}
 
 
 def commit_inputs(path: str, sound: bool) -> dict:
@@ -1521,7 +1606,7 @@ def device_event_ms(prof, span: str | None = None) -> dict | None:
 
 
 def path_figures(work: dict, dev_ms: dict | None, phase: str,
-                 what: str) -> dict:
+                 what: str, names=PROVE_PATH) -> dict:
     """Per kernel entry of the JSON line on a prove's path (the Fr kernels
     and kernel B): launches, groups, bytes, IMADs and the bound of that
     work (the wrappers' counters over a run), beside
@@ -1530,8 +1615,7 @@ def path_figures(work: dict, dev_ms: dict | None, phase: str,
     device ms is that of both k's launches, "device_ms_k2_k3", on each k's
     entry that launched. Printed one line an entry."""
     out = {}
-    for name in ("fold", "product_evals_k2", "product_evals_k3",
-                 "gruen_round", "row_plane_sums"):
+    for name in names:
         kern, _, k = name.partition("_k")
         w = work[kern]
         s = f"_k{k}" if k else ""
@@ -1831,6 +1915,11 @@ def run_verify(log_t: int, compat: bytes, sound: bytes) -> dict:
 
 
 CLI_LOG_T = 12
+# A byte of the first value of stage 1's first round poly in the ZOLT v1
+# container: past the magic, version, 11 commitment blocks and the R1CS
+# placeholder (1000 bytes), has-stages, log_t, log_k, stage 1's round
+# count and that poly's length
+CLI_STAGE1_BYTE = 1033
 
 
 def run_cli(torch, root: str) -> dict:
@@ -1841,8 +1930,10 @@ def run_cli(torch, root: str) -> dict:
     the JAX CLI's digest. Then, each in a process of its own,
     `python3 -m zolt_tpu_torch verify file --elf elf` must exit 0 with
     PASSED, the same with one byte flipped must exit 1 with FAILED, and
-    `python3 -m zolt_tpu_torch info` must name the card. Returns the
-    launches per JSON entry and the seconds of each command."""
+    `python3 -m zolt_tpu_torch info` must name the card. The same for the
+    internal and legacy containers (CLI_CONTAINERS; see the module
+    docstring, phase 7). Returns the launches per JSON entry, those of
+    each container's prove, and the seconds of each command."""
     from zolt_tpu_torch.__main__ import main as cli_main
 
     secs = {}
@@ -1882,14 +1973,24 @@ def run_cli(torch, root: str) -> dict:
         with open(bad, "wb") as f:
             f.write(blob[:24] + bytes([blob[24] ^ 1]) + blob[25:])
 
-        def cli(name: str, *argv: str, rc: int, want: str) -> None:
+        def cli(name: str, *argv: str, rc: int, want: str,
+                then: tuple = (), then_want: str = "") -> None:
+            """`python3 -m zolt_tpu_torch *argv` in a subprocess; with
+            `then`, that command's main(argv) and then main(then) in one
+            subprocess (one interpreter and torch import for both)."""
+            cmd = [sys.executable, "-m", "zolt_tpu_torch", *argv]
+            if then:
+                cmd = [sys.executable, "-c",
+                       "import sys\n"
+                       "from zolt_tpu_torch.__main__ import main\n"
+                       f"sys.exit(main({list(argv)!r}) or "
+                       f"main({list(then)!r}))\n"]
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "zolt_tpu_torch",
-                                *argv], cwd=root, capture_output=True,
-                               text=True, timeout=600)
+            r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                               timeout=600)
             secs[name] = round(time.perf_counter() - t0, 4)
             said = r.stdout.strip()
-            if r.returncode != rc or want not in said:
+            if r.returncode != rc or want not in said or then_want not in said:
                 raise AssertionError(f"python3 -m zolt_tpu_torch {name}: "
                                      f"exit {r.returncode}, stdout {said!r}, "
                                      f"stderr {r.stderr[-2000:]!r}")
@@ -1900,13 +2001,319 @@ def run_cli(torch, root: str) -> dict:
         cli("verify_flipped", "verify", bad, "--elf", elf, rc=1,
             want="FAILED")
         cli("info", "info", rc=0, want=torch.cuda.get_device_name(0))
-    return {"launches": launches, "seconds": secs}
+
+        # the internal and legacy containers: in-process proves on the card
+        # (tail 0), each file's sha256 pinned; verify and then stats of each
+        # in one subprocess, and the internal file with a stage-1 byte
+        # flipped in another
+        container_launches = {}
+        for name, (flags, want) in CLI_CONTAINERS.items():
+            f_out = os.path.join(td, f"{name}.bin")
+            os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                rc = cli_main(["prove", elf, *flags, "-o", f_out])
+                torch.cuda.synchronize()
+                secs[f"prove_{name}"] = round(time.perf_counter() - t0, 4)
+                container_launches[name], _ = read_launches()
+            finally:
+                del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+            with open(f_out, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            if rc != 0 or digest != want:
+                raise AssertionError(f"the CLI's prove {flags}: exit {rc}, "
+                                     f"sha256 {digest} != {want}")
+            say("cli", f"prove {' '.join(flags) or '(internal)'} (default "
+                       f"backend), T = 2^{CLI_LOG_T}, tail 0: "
+                       f"{secs[f'prove_{name}']} s, sha256 equals the JAX "
+                       f"CLI's; launches {container_launches[name]}")
+            ran = [k for k, v in container_launches[name].items() if v]
+            want_path = INTERNAL_PATH if name == "internal" else LEGACY_PATH
+            if not set(want_path) <= set(ran):
+                raise AssertionError(f"the CLI's prove {flags} launched "
+                                     f"{ran}, not all of {want_path}")
+            cli(f"verify_stats_{name}", "verify", f_out, rc=0,
+                want="PASSED", then=("stats", f_out), then_want="format: ")
+        with open(os.path.join(td, "internal.bin"), "rb") as f:
+            blob = f.read()
+        bad = os.path.join(td, "internal_flipped.bin")
+        with open(bad, "wb") as f:       # the first stage-1 round poly
+            f.write(blob[:CLI_STAGE1_BYTE] + bytes([blob[CLI_STAGE1_BYTE] ^ 1])
+                    + blob[CLI_STAGE1_BYTE + 1:])
+        cli("verify_internal_flipped", "verify", bad, rc=1, want="FAILED")
+    return {"launches": launches, "seconds": secs,
+            "containers": container_launches}
+
+
+def run_legacy(torch, log_t: int) -> dict:
+    """The legacy prover: prove_program(emu, log_k=LEGACY_LOG_K) of the
+    sum-loop guest at T = 2^log_t on the card (device="cuda") with the
+    host tail at 0, so every round of its six stages runs there; timed,
+    by stage, with its peak device memory, under torch.profiler (device
+    ms by kernel). Its serialize() sha256 must equal JAX_LEGACY_DIGEST_T16
+    at T = 2^16, every kernel of LEGACY_PATH must launch, verify must pass
+    and a copy with a stage-1 round poly +1 fail. Returns the launches,
+    the path figures and the seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zolt_tpu_torch import serialization
+    from zolt_tpu_torch.r1cs import constraints as rc
+    from zolt_tpu_torch.utils.log import metrics
+    from zolt_tpu_torch.vm import run_elf
+    from zolt_tpu_torch.zkvm import prove_program, verify
+    from zolt_tpu_torch.zkvm.stages import _ceil_log2
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(log_t))
+        emu = run_elf(path)
+    os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+    try:
+        reset_launches()
+        metrics.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            proof, padded = prove_program(emu, log_k=LEGACY_LOG_K,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+    peak = torch.cuda.max_memory_allocated()
+    stages = {k: round(v, 4) for k, v in metrics.timings.items()}
+    launches, work = read_launches()
+    blob = serialization.serialize(proof)
+    digest = hashlib.sha256(blob).hexdigest()
+    say("legacy", f"prove_program (log_k {LEGACY_LOG_K}, 'cuda', tail 0, "
+                  f"under torch.profiler) at T = 2^{log_t}: {wall:.3f} s "
+                  f"{stages}; peak device memory {peak} bytes "
+                  f"({peak / 2 ** 20:.1f} MiB); launches {launches}")
+    idle = [k for k in LEGACY_PATH if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the legacy prove: "
+                             f"{idle}")
+    dev_ms = recorded_ms(prof, work, ("fold", "product_evals"), "legacy")
+    figures = path_figures(work, dev_ms, "legacy", "the legacy prove",
+                           LEGACY_PATH)
+    # stage 1's product evals: its first launch (3 x 2^21 entries) and its
+    # 21 rounds, the first product-evals launches of the prove
+    ev = kernel_events(prof, DEVICE_NAMES["product_evals"])
+    s1 = _ceil_log2(len(padded) * rc.NUM_CONSTRAINTS)
+    if len(ev) >= s1:
+        first, stage1 = ev[0][1] / 1e3, sum(d for _, d in ev[:s1]) / 1e3
+        say("legacy", f"stage 1's product evals (k = 3, degree 3): the first "
+                      f"launch, 3 x 2^{s1} entries, {first:.4f} ms; its "
+                      f"{s1} rounds {stage1:.4f} ms on the device")
+        figures["stage1_product_evals_ms"] = dict(first=first, rounds=stage1)
+    if log_t == 16:
+        if digest != JAX_LEGACY_DIGEST_T16:
+            raise AssertionError(f"legacy proof sha256 {digest} != "
+                                 f"{JAX_LEGACY_DIGEST_T16}")
+        say("legacy", f"{len(blob)} bytes; sha256 equals the JAX legacy "
+                      f"digest")
+    else:
+        say("legacy", f"{len(blob)} bytes; sha256 {digest} (no JAX digest "
+                      f"for T = 2^{log_t})")
+    ncv = _ceil_log2(len(padded) * rc.NUM_CONSTRAINTS)
+    t0 = time.perf_counter()
+    if verify(proof, ncv) is not True:
+        raise AssertionError("the legacy verifier did not accept")
+    secs = dict(prove=wall, verify=time.perf_counter() - t0)
+    proof.stage_proofs[0].round_polys[3][0] += 1   # test_multistage.py:82
+    try:
+        verify(proof, ncv)
+    except AssertionError as e:
+        say("legacy", f"verify passed in {secs['verify']:.3f} s; a stage-1 "
+                      f"round poly +1 fails: {e}")
+    else:
+        raise AssertionError("the legacy verifier accepted a stage-1 round "
+                             "poly +1")
+    return dict(launches=launches, figures=figures, seconds=secs,
+                stages=stages, peak_bytes=peak)
+
+
+# The opening's SRS: the largest padded poly of the T = 2^16 guest is its
+# memory poly, 130561 RAM post-values padded to 2^17 (the rd values: 2^16)
+OPENING_SRS = 1 << 17
+
+
+def internal_polys(emu, padded, image: bytes) -> list:
+    """The three committed polys as prove_internal makes them (bytecode,
+    RAM post-values, rd values), zero-padded to powers of two."""
+    from zolt_tpu_torch.zkvm.internal import _next_pow2
+
+    def pad(vals):
+        return list(vals) + [0] * (_next_pow2(max(len(vals), 2)) - len(vals))
+
+    return [pad(list(image)), pad([a.post_value for a in emu.ram.trace]),
+            pad([s.rd_value for s in padded])]
+
+
+def run_internal(torch, log_t: int, kzg) -> dict:
+    """The internal (ZOLT v1) prover on the card at T = 2^log_t, the host
+    tail at 0: prove_internal with the CLI's defaults (log_k 16,
+    srs_degree 1280), its sha256 equal to JAX_INTERNAL_DIGEST_T16 at
+    T = 2^16, verify_internal passing, every kernel of INTERNAL_PATH
+    launched; then with_openings=True at srs_degree OPENING_SRS: the three
+    commitments equal to the native C MSM's, verify_internal passing, and
+    a copy whose first opened evaluation is one higher failing with the
+    pairing check. Each prove timed by stage, under torch.profiler, with
+    C, D and E also timed by CUDA events. The opening's SRS, passed as
+    prove_internal(srs=), is the first OPENING_SRS powers of `kzg`, the g1
+    phase's 2^18 (the same τ: what insecure_setup(OPENING_SRS) gives,
+    without its 5-36 s on the host; its last power is checked against
+    τ^(OPENING_SRS-1)·G). Returns, for "prove" and "opening", the
+    launches, the path figures and the seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zolt_tpu_torch.curve import host as G1
+    from zolt_tpu_torch.field.params import FR
+    from zolt_tpu_torch.native import g1_msm_native
+    from zolt_tpu_torch.pcs.hyperkzg import HyperKZGBatchProof
+    from zolt_tpu_torch.pcs.srs import INSECURE_TAU, KZGSRS, insecure_setup
+    from zolt_tpu_torch.utils.log import metrics
+    from zolt_tpu_torch.vm import elf as elf_mod
+    from zolt_tpu_torch.vm import pad_with_noop, run_elf
+    from zolt_tpu_torch.zkvm import internal
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(log_t))
+        image = bytes(elf_mod.load_file(path).flat_image()[1])
+        emu = run_elf(path)
+    padded = pad_with_noop(list(emu.trace))
+    opening_srs = KZGSRS(powers_g1=kzg.powers_g1[:OPENING_SRS],
+                         tau_g2=kzg.tau_g2, g1=kzg.g1, g2=kzg.g2)
+    last = G1.scalar_mul(G1.G1_GEN, pow(INSECURE_TAU, OPENING_SRS - 1,
+                                           FR.p))
+    if opening_srs.powers_g1[-1] != last:
+        raise AssertionError("the g1 phase's SRS is not insecure_setup's")
+    out = {}
+    for name, srs_degree in (("prove", 1280), ("opening", OPENING_SRS)):
+        t0 = time.perf_counter()
+        srs = (insecure_setup(srs_degree) if name == "prove"
+               else opening_srs)
+        setup_s = time.perf_counter() - t0
+        os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+        try:
+            reset_launches()
+            metrics.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with g1_events(torch) as events, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                proof = internal.prove_internal(
+                    emu, padded, image, log_k=16, srs_degree=srs_degree,
+                    with_openings=name == "opening", device="cuda", srs=srs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+        peak = torch.cuda.max_memory_allocated()
+        stages = {k: round(v, 4) for k, v in metrics.timings.items()}
+        launches, work = read_launches()
+        made = (f"its SRS made in {setup_s:.3f} s before" if name == "prove"
+                else f"its SRS the g1 phase's first {srs_degree} powers")
+        say("internal", f"prove_internal ({name}: srs_degree {srs_degree}, "
+                        f"{made}; 'cuda', "
+                        f"tail 0, under torch.profiler) at T = 2^{log_t}: "
+                        f"{wall:.3f} s {stages}; peak device memory {peak} "
+                        f"bytes ({peak / 2 ** 20:.1f} MiB); launches "
+                        f"{launches}")
+        want = INTERNAL_PATH if name == "prove" else KZG_PATH
+        idle = [k for k in want if launches[k] <= 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by the internal "
+                                 f"prove ({name}): {idle}")
+        dev_ms = recorded_ms(prof, work, ("fold", "product_evals"),
+                             "internal")
+        figures = path_figures(work, dev_ms, "internal",
+                               f"the internal prove ({name})",
+                               ("fold", "product_evals_k3"))
+        figures.update(g1_path_figures(prof, work, events, "internal",
+                                       f"the internal prove ({name})"))
+        blob = proof.serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        if name == "prove":
+            if log_t == 16 and digest != JAX_INTERNAL_DIGEST_T16:
+                raise AssertionError(f"internal proof sha256 {digest} != "
+                                     f"{JAX_INTERNAL_DIGEST_T16}")
+            say("internal", f"{len(blob)} bytes; sha256 {digest}"
+                            + (" equals the JAX internal digest"
+                               if log_t == 16 else ""))
+        else:
+            polys = internal_polys(emu, padded, image)
+            powers = opening_srs.powers_g1
+            native = [None if not any(p) else
+                      g1_msm_native(powers[: len(p)], p) for p in polys]
+            got = [proof.bc_commitment, proof.mem_commitment,
+                   proof.reg_commitment]
+            if got != native:
+                raise AssertionError("the internal prove's commitments "
+                                     "differ from the native C MSM's")
+            say("internal", "the opening prove's three commitments equal "
+                            "the native C MSM's")
+        t0 = time.perf_counter()
+        if internal.verify_internal(proof) is not True:
+            raise AssertionError(f"verify_internal did not accept ({name})")
+        secs = dict(prove=wall, verify=time.perf_counter() - t0,
+                    setup=setup_s)
+        say("internal", f"verify_internal ({name}) passed in "
+                        f"{secs['verify']:.3f} s")
+        if name == "opening":
+            bo = proof.kzg_batch_opening
+            proof.kzg_batch_opening = HyperKZGBatchProof(
+                evaluations=[(bo.evaluations[0] + 1)] + bo.evaluations[1:],
+                proof=bo.proof)
+            try:
+                internal.verify_internal(proof)
+            except internal.InternalVerificationError as e:
+                if "kzg batch opening pairing check failed" not in str(e):
+                    raise
+                say("internal", f"the opening with evaluations[0] + 1 "
+                                f"fails: {e}")
+            else:
+                raise AssertionError("verify_internal accepted a tampered "
+                                     "batch opening")
+        out[name] = dict(launches=launches, figures=figures, seconds=secs,
+                         stages=stages, peak_bytes=peak)
+    return out
 
 
 def kernels_json(stats: dict, launches: dict, path: dict,
                  sound_launches: dict, sound: dict, cli: dict, commits: dict,
-                 kzg: dict) -> list:
-    """The kernels' entries of the JSON line."""
+                 kzg: dict, legacy: dict, internal: dict) -> list:
+    """The kernels' entries of the JSON line. `launches` is the compat
+    prove's (the main path); each other path's launches and figures sit
+    beside it under its own prefix: sound_, cli_, batch_opening_, legacy_,
+    internal_ and opening_ (the internal prove with its batch opening)."""
+
+    def other_paths(name: str) -> dict:
+        out = {}
+        figs = [("legacy", legacy["figures"]),
+                ("internal", internal["prove"]["figures"]),
+                ("opening", internal["opening"]["figures"])]
+        for pre, f in figs:
+            if name in f:
+                out.update({f"{pre}_path_{k}": v for k, v in f[name].items()
+                            if k.startswith(("bound_ms", "device_ms"))})
+        if name == "product_evals_k3" and \
+                "stage1_product_evals_ms" in legacy["figures"]:
+            out["legacy_stage1_device_ms"] = \
+                legacy["figures"]["stage1_product_evals_ms"]
+        out.update(legacy_launches=legacy["launches"][name],
+                   internal_launches=internal["prove"]["launches"][name],
+                   opening_launches=internal["opening"]["launches"][name],
+                   cli_container_launches={
+                       c: v[name] for c, v in cli["containers"].items()})
+        return out
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
     kernels = []
@@ -1924,6 +2331,7 @@ def kernels_json(stats: dict, launches: dict, path: dict,
         if name + "_batch_opening" in stats:
             bs = stats[name + "_batch_opening"]
             entry["batch_opening_shape"] = {k: bs[k] for k in keys + ("shape",)}
+        entry.update(other_paths(name))
         kernels.append(entry)
     for name, src, rep in G1_KERNELS:
         on_prove = name in PROVE_PATH
@@ -1955,6 +2363,7 @@ def kernels_json(stats: dict, launches: dict, path: dict,
             for pre, figs in (("path", path), ("sound_path", sound["prove"])):
                 entry.update({f"{pre}_{k}": v for k, v in figs[name].items()
                               if k.startswith(("bound_ms", "device_ms"))})
+        entry.update(other_paths(name))
         kernels.append(entry)
     return kernels
 
@@ -2010,9 +2419,11 @@ def main() -> int:
     say("verify", f"seconds: verify {verify_s}; cli {cli['seconds']}")
     commits = commit_pairs(torch, args.log_t)
     kzg = run_kzg(torch, kzg_srs)
+    legacy = run_legacy(torch, args.log_t)
+    internal = run_internal(torch, args.log_t, kzg_srs)
 
     kernels = kernels_json(stats, launches, path, sound_launches, sound, cli,
-                           commits, kzg)
+                           commits, kzg, legacy, internal)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -6,27 +6,36 @@ T = 2^10, with --gzip, --device-out, --export-preprocessing and --timings,
 runs once a module in each package; the files must be byte-equal. Then
 the port's `verify` (of the gzipped file, and with --device), a byte
 flipped (exit 1, JAX's FAILED line), and the lines of `stats`, `run`,
-`trace`, `decode` and `srs` against JAX's. Every command that is not
-ported must exit 2 with a message naming it, and the default backend must
-raise without a CUDA device. Pins: the digest chip_smoke.py holds its CLI
-prove at T = 2^12 to (JAX's CLI on the host tier), the golden-array guest
-with the joint Dory proof on the device path (device="cpu"), and
-`stages=3` and `stages=5` on the host tier, each byte-equal to JAX's.
+`trace`, `decode` and `srs` against JAX's. The internal (ZOLT v1) and
+legacy (ZOLT v2, JSON) containers: `prove` (default), `prove --legacy`
+with --json, --gzip and --log-k, each with --backend host, byte-equal to
+JAX's files (JAX's legacy prover with its jitted helpers on its host
+tier, as tests/test_torch_legacy.py runs it), and `verify` (--strict
+too) and `stats` of each, a flipped stage-1 byte of each, and a
+Jolt-format file without --elf, with JAX's lines. What is not ported
+(the mesh backends, `bench`) must exit 2 with a message naming it, and
+the default backend must raise without a CUDA device. Pins: the digests
+chip_smoke.py holds its CLI proves at T = 2^12 to (JAX's CLI on the host
+tier), the golden-array guest with the joint Dory proof on the device
+path (device="cpu"), and `stages=3` and `stages=5` on the host tier,
+each byte-equal to JAX's.
 
-About 45 s in one process on an 8-core CPU box (the T = 2^12 digest
-about 8 s, each T = 2^10 sound prove about 3 s, each sound verify about
-3 s).
+About 60 s in one process on an 8-core CPU box (the T = 2^12 digests
+about 8 s each, each T = 2^10 sound prove about 3 s, each sound verify
+about 3 s).
 """
 
 import contextlib
 import gzip
 import hashlib
 import io
+import re
 
 import pytest
 import torch
 
 import chip_smoke
+from test_torch_legacy import jax_legacy_on_host
 from test_torch_slice import GUESTS
 from zolt_tpu.__main__ import main as jax_main
 from zolt_tpu.zkvm.pipeline import prove_jolt as jax_prove_jolt
@@ -142,41 +151,152 @@ def _fake(tmp_path, name: str, blob: bytes) -> str:
 
 
 REFUSALS = {
-    "prove_internal": (["prove", "{elf}"], "without --jolt-format"),
-    "prove_legacy": (["prove", "{elf}", "--legacy"], "--legacy"),
     "backend_mesh": (["prove", "{elf}", "--jolt-format", "--backend",
                       "mesh"], "mesh"),
     "stage1_backend_mesh": (["prove", "{elf}", "--jolt-format", "--backend",
                              "host", "--stage1-backend", "mesh"], "mesh"),
+    "internal_mesh": (["prove", "{elf}", "--backend", "mesh"], "mesh"),
+    "legacy_mesh": (["prove", "{elf}", "--legacy", "--backend", "mesh"],
+                    "mesh"),
     "bench": (["bench"], "bench"),
-    "verify_internal": (["verify", "{internal}", "--elf", "{elf}"],
-                        "ZOLT v1"),
-    "verify_legacy": (["verify", "{legacy}"], "legacy containers"),
-    "verify_without_elf": (["verify", "{out}"], "legacy containers"),
-    "stats_internal": (["stats", "{internal}"], "ZOLT v1"),
-    "stats_legacy": (["stats", "{legacy}"], "legacy containers"),
-    "stats_json": (["stats", "{json}"], "legacy containers"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_what_is_not_ported_is_refused(proved, tmp_path, capsys, case):
+def test_what_is_not_ported_is_refused(proved, capsys, case):
     argv, what = REFUSALS[case]
-    names = dict(
-        elf=proved["elf"], out=proved["port"]["paths"]["out"],
-        internal=_fake(tmp_path, "i.bin", b"ZOLT\x01\x00\x00\x00" + bytes(32)),
-        legacy=_fake(tmp_path, "l.bin", b"ZOLT\x02\x00\x00\x00" + bytes(32)),
-        json=_fake(tmp_path, "j.json", b'{"log_t": 10}'))
-    assert main([a.format(**names) for a in argv]) == 2
+    assert main([a.format(elf=proved["elf"]) for a in argv]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and what in err, err
 
 
-def test_default_prove_needs_a_cuda_device(proved, tmp_path, monkeypatch):
+@pytest.mark.parametrize("flags", [["--jolt-format", "--sound"], [],
+                                   ["--legacy"]],
+                         ids=["jolt_format", "internal", "legacy"])
+def test_default_prove_needs_a_cuda_device(proved, tmp_path, monkeypatch,
+                                           flags):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["prove", proved["elf"], "--jolt-format", "--sound", "-o",
-              str(tmp_path / "p.bin")])
+        main(["prove", proved["elf"], *flags, "-o", str(tmp_path / "p.bin")])
+
+
+# The internal and legacy containers: each prove's flags, the same in both
+# CLIs (JAX's ignores --backend for them)
+CONTAINERS = {
+    "internal": [],
+    "internal_gzip": ["--gzip"],
+    "legacy": ["--legacy"],
+    "legacy_json": ["--legacy", "--json"],
+    "legacy_gzip": ["--legacy", "--gzip"],
+    "legacy_log_k": ["--legacy", "--log-k", "8"],
+}
+
+
+def _timeless(text: str) -> str:
+    """A command's output without its seconds."""
+    return re.sub(r"\d+\.\d+s", "_s", text)
+
+
+@pytest.fixture(scope="module")
+def containers(proved, tmp_path_factory):
+    """Both CLIs' `prove <elf> <flags> --backend host -o <file>` of the
+    sum-loop guest (T = 2^10) for each of CONTAINERS: {name: {"port" |
+    "jax": (file bytes, stdout without seconds, path)}}."""
+    root = tmp_path_factory.mktemp("containers")
+    out = {}
+    for name, flags in CONTAINERS.items():
+        out[name] = {}
+        for who, fn in (("port", main), ("jax", jax_main)):
+            path = str(root / f"{who}_{name}.bin")
+            with jax_legacy_on_host():
+                rc, text = _run(fn, ["prove", proved["elf"], *flags,
+                                     "--backend", "host", "-o", path])
+            assert rc == 0, (name, who)
+            with open(path, "rb") as f:
+                out[name][who] = (f.read(), _timeless(text.replace(
+                    f"{who}_{name}", name)), path)
+    return out
+
+
+@pytest.mark.parametrize("name", list(CONTAINERS))
+def test_prove_writes_the_jax_container(containers, name):
+    port, ref = containers[name]["port"], containers[name]["jax"]
+    assert port[0] == ref[0]
+    assert port[1] == ref[1]
+    assert port[1].startswith("trace: 779 cycles (padded 1024)\n")
+    assert (port[0][:2] == b"\x1f\x8b") == ("gzip" in name)
+
+
+def _flipped(tmp_path, containers, name: str) -> str:
+    """A copy of the port's file of `name` with a byte of the first
+    stage-1 round poly's first value flipped."""
+    blob = containers[name]["port"][0]
+    # ZOLT v1: magic, version, 11 commitment blocks and the R1CS
+    # placeholder (1000 bytes), has-stages, log_t, log_k, then stage 1's
+    # round count and the first poly's length; ZOLT v2: magic, version,
+    # log_t, log_k, the stage count, stage 1's round count, the length
+    at = chip_smoke.CLI_STAGE1_BYTE if name == "internal" else 48
+    bad = bytearray(blob)
+    bad[at] ^= 1
+    return _fake(tmp_path, f"flipped_{name}.bin", bytes(bad))
+
+
+# (argv, the exit code): verify and stats of each container in both CLIs
+READS = {
+    "verify_internal": (["verify", "{internal}"], 0),
+    "verify_internal_gzip": (["verify", "{internal_gzip}"], 0),
+    "verify_legacy": (["verify", "{legacy}"], 0),
+    "verify_legacy_strict": (["verify", "{legacy}", "--strict"], 0),
+    "verify_legacy_json": (["verify", "{legacy_json}"], 0),
+    "verify_legacy_gzip": (["verify", "{legacy_gzip}"], 0),
+    "verify_legacy_log_k": (["verify", "{legacy_log_k}"], 0),
+    "verify_flipped_internal": (["verify", "{flipped_internal}"], 1),
+    "verify_flipped_legacy": (["verify", "{flipped_legacy}"], 1),
+    "verify_jolt_without_elf": (["verify", "{out}"], 1),
+    "stats_internal": (["stats", "{internal_gzip}"], 0),
+    "stats_legacy": (["stats", "{legacy}"], 0),
+    "stats_legacy_json": (["stats", "{legacy_json}"], 0),
+    "stats_legacy_gzip": (["stats", "{legacy_gzip}"], 0),
+}
+
+
+@pytest.mark.parametrize("case", list(READS))
+def test_verify_and_stats_print_jax_lines(proved, containers, tmp_path,
+                                          case):
+    argv, want = READS[case]
+    names = {k: v["port"][2] for k, v in containers.items()}
+    names.update(out=proved["port"]["paths"]["out"],
+                 flipped_internal=_flipped(tmp_path, containers, "internal"),
+                 flipped_legacy=_flipped(tmp_path, containers, "legacy"))
+    argv = [a.format(**names) for a in argv]
+    rc, text = _run(main, argv)
+    assert (rc, _timeless(text)) == \
+        (lambda r: (r[0], _timeless(r[1])))(_run(jax_main, argv))
+    assert rc == want, text
+    if argv[0] == "verify":
+        assert text.startswith("PASSED (" if want == 0 else "FAILED: "), text
+
+
+def _cli_digest(tmp_path, fn, flags) -> str:
+    elf = str(tmp_path / "sum_loop_t12.elf")
+    with open(elf, "wb") as f:
+        f.write(chip_smoke.sum_loop_elf(12))
+    out = str(tmp_path / "p.bin")
+    assert _run(fn, ["prove", elf, *flags, "-o", out])[0] == 0
+    with open(out, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@pytest.mark.parametrize("which", ["internal", "legacy_json", "legacy_gzip"])
+def test_jax_cli_container_digests_of_the_chip_smoke_guest(tmp_path, which):
+    """Recompute the digests chip_smoke.py holds its CLI's internal and
+    legacy proves (T = 2^12, the GPU) to: JAX's CLI, its legacy prover's
+    jitted helpers on its host tier."""
+    flags, want = chip_smoke.CLI_CONTAINERS[which]
+    with jax_legacy_on_host():
+        assert _cli_digest(tmp_path, jax_main, flags) == want
+
+
 
 
 def test_jax_cli_sound_digest_of_the_chip_smoke_guest(tmp_path):

@@ -22,9 +22,12 @@ crossover, and each of its ways to weight by the eq factors; the fold and
 the k = 2 product evals at the sound batch opening's shapes (groups of
 2^20 and 2^16 entries, 16 a launch); the G1 kernels A-D against their
 plain versions (A word for word, B-D in affine form, B and the Pippenger
-also against the native C tier) and HyperKZG on the Pippenger; and the
+also against the native C tier) and HyperKZG on the Pippenger; the
 sound prove at T = 2^10 on the GPU (its one-hot cubes through kernel B)
-against the host tier's bytes. Every wrapper's launch counter must
+against the host tier's bytes; the legacy and internal proves at
+T = 2^10 on the GPU against the host tiers' bytes; and the generic
+product sumcheck (k = 2, 3 on the kernels against the plain versions;
+k = 1, 5 raise). Every wrapper's launch counter must
 go up by exactly one per launch. Tolerance: exact (equal words), since every
 value is a canonical field element.
 """
@@ -519,3 +522,64 @@ def test_hyperkzg_on_cuda_verifies(gen):
                                                            before[1] + 1)
     assert hyperkzg.verify(kzg, com, x, hyperkzg._mle_eval(evals, x), proof,
                            Blake2bTranscript(b"k"))
+
+
+# ---------------------------------------------------------------------------
+# The internal and legacy provers, and the generic product sumcheck
+# ---------------------------------------------------------------------------
+
+def test_legacy_and_internal_proves_on_cuda_equal_the_host_tier(
+        tmp_path, monkeypatch):
+    """The sum-loop guest at T = 2^10 on the GPU (tail 0: every round of the
+    legacy prover's six stages and of the internal prover's stage 4 in
+    the kernels; the internal commitments on the Pippenger) gives the
+    bytes of the kernels' plain torch versions (device="cpu")."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on a GPU")
+    from chip_smoke import sum_loop_elf
+    from zolt_tpu_torch import serialization
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.vm import elf as elf_mod
+    from zolt_tpu_torch.vm import pad_with_noop, run_elf
+    from zolt_tpu_torch.zkvm import internal, prove_program
+
+    path = str(tmp_path / "sum_loop_t10.elf")
+    with open(path, "wb") as f:
+        f.write(sum_loop_elf(10))
+    image = bytes(elf_mod.load_file(path).flat_image()[1])
+    monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "0")
+    blobs = {}
+    for device in ("cpu", "cuda"):
+        before = (evals.product_evals.counts["groups_k3"],
+                  pippenger.scalar_digits.counts["launches"])
+        proof, _ = prove_program(run_elf(path), log_k=10, device=device)
+        emu = run_elf(path)
+        ip = internal.prove_internal(emu, pad_with_noop(list(emu.trace)),
+                                     image, device=device)
+        blobs[device] = (serialization.serialize(proof), ip.serialize())
+        ran = (evals.product_evals.counts["groups_k3"] > before[0],
+               pippenger.scalar_digits.counts["launches"] == before[1] + 3)
+        assert ran == ((True, True) if device == "cuda" else (False, False))
+    assert blobs["cuda"] == blobs["cpu"]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+def test_product_sumcheck_on_cuda(gen, k):
+    """k = 2, 3: the rounds on the kernels equal the plain versions' on the
+    CPU; k = 1 and 5 raise (the product-evals kernel has K = 2, 3)."""
+    from zolt_tpu_torch.sumcheck import (ProductSumcheck,
+                                         initial_claim_product, run_sumcheck)
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+
+    tabs = [_tables(gen, 1, 64, 64)[0] for _ in range(k)]
+    if k not in (2, 3):
+        with pytest.raises(NotImplementedError, match="K = 2 and 3"):
+            ProductSumcheck(tabs)
+        return
+    claim = initial_claim_product(tabs)
+    assert claim == initial_claim_product([t.cpu() for t in tabs])
+    got = run_sumcheck(ProductSumcheck(tabs), Blake2bTranscript(b"s"), claim)
+    ref = run_sumcheck(ProductSumcheck([t.cpu() for t in tabs]),
+                       Blake2bTranscript(b"s"), claim)
+    assert (got.compressed_polys, got.challenges, got.final_claim) == \
+        (ref.compressed_polys, ref.challenges, ref.final_claim)

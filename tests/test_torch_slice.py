@@ -11,6 +11,7 @@ Tolerance: the serialized proofs are byte-equal.
 """
 
 import hashlib
+import os
 import subprocess
 import sys
 
@@ -110,22 +111,29 @@ def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port and chip_smoke.py, imported in a fresh
+    """Every module of the port, chip_smoke.py and the port's examples
+    (examples/torch_*.py, loaded without running), imported in a fresh
     interpreter (this process has both loaded through tests/conftest.py)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import glob, importlib, pkgutil, runpy, sys\n"
         "import zolt_tpu_torch\n"
         "for m in pkgutil.walk_packages(zolt_tpu_torch.__path__,\n"
         "                               'zolt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import zolt_tpu_torch.zkvm.pipeline\n"
         "import chip_smoke\n"
+        "ex = sorted(glob.glob('examples/torch_*.py'))\n"
+        "assert len(ex) == 2, ex\n"
+        "for path in ex:\n"
+        "    runpy.run_path(path)\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'zolt_tpu'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
     assert out.returncode == 0, out.stdout + out.stderr
 
 

@@ -1,36 +1,44 @@
 """zolt-tpu-torch CLI: run / trace / decode / prove / verify / stats / srs / info.
 
-The Jolt-format command surface of the JAX package's CLI, on the port:
+The command surface of the JAX package's CLI, on the port:
     python -m zolt_tpu_torch run <elf> [--max N] [--regs]
     python -m zolt_tpu_torch trace <elf>
     python -m zolt_tpu_torch decode <hex-instruction>
-    python -m zolt_tpu_torch prove <elf> --jolt-format [--sound] [-o out]
-                                   [--export-preprocessing PATH] [--gzip]
-                                   [--device-out PATH] [--timings]
+    python -m zolt_tpu_torch prove <elf> [-o out] [--gzip]
+                                   [--legacy [--json] [--log-k N]]
+                                   [--jolt-format [--sound]
+                                    [--export-preprocessing PATH]
+                                    [--device-out PATH] [--timings]
+                                    [--stage1-backend device|host]]
                                    [--backend device|host]
-                                   [--stage1-backend device|host]
-    python -m zolt_tpu_torch verify <proof> --elf <elf> [--inputs HEX]
+    python -m zolt_tpu_torch verify <proof> [--elf <elf>] [--inputs HEX]
                                     [--outputs HEX] [--panic]
                                     [--device PATH] [--reference-compat]
+                                    [--strict]
     python -m zolt_tpu_torch stats <proof>
     python -m zolt_tpu_torch srs <ptau-or-raw-srs>
     python -m zolt_tpu_torch info
 
-`prove` runs on the GPU unless asked otherwise: --backend defaults to
-"device" (prove_jolt's backend="device", device="cuda"), which raises
-without a CUDA device; --backend host is the host C tier. --stage1-backend
-defaults to the value of --backend. The proof bytes are the same on every
-tier.
+`prove` writes the internal ZOLT v1 container (zkvm/internal.py, the
+reference-parity prover, log_k = 16) by default, the legacy ZOLT v2
+container (zkvm/prover.py; JSON with --json; log_k from --log-k, default
+10) with --legacy, and the Jolt-format proof with --jolt-format. Each runs
+on the GPU unless asked otherwise: --backend defaults to "device"
+(device="cuda"), which raises without a CUDA device; --backend host is the
+host C tier for the Jolt format, and the kernels' plain torch versions on
+the CPU (device="cpu") for the other two. --stage1-backend (Jolt format only) defaults to the value of
+--backend. The proof bytes are the same on every tier. `verify` and
+`stats` take any of the containers, gzipped or not, routed as the JAX
+package's CLI routes them.
 
 Verification is strict by default; --reference-compat opts into the lenient
 downgrade that reference-produced proofs need (their stage-5 zero schedule
-clobbers the serialized RAF claim). --device pins the Fiat-Shamir preamble
-to a JoltDevice file written at prove time with --device-out.
+clobbers the serialized RAF claim); --strict is accepted and does nothing.
+--device pins the Fiat-Shamir preamble to a JoltDevice file written at
+prove time with --device-out.
 
-Not ported yet, and refused with exit code 2 and a message naming it:
-`prove` without --jolt-format (the internal ZOLT v1 prover) or with
---legacy alone, the mesh backends, `verify` and `stats` of the internal and
-legacy containers, and `bench`.
+Not ported yet, and refused with exit code 2 and a message naming it: the
+mesh backends and `bench`.
 """
 
 from __future__ import annotations
@@ -39,13 +47,8 @@ import argparse
 import sys
 import time
 
-_INTERNAL = "the internal prover's ZOLT v1 container"
-_LEGACY = "the legacy containers (ZOLT v2, JSON)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item 4)")
+STAGE_NAMES = ["stage1 spartan", "stage2 ram-raf", "stage3 lasso",
+               "stage4 ram-val", "stage5 registers", "stage6 booleanity"]
 
 
 def _read_proof(path: str) -> bytes:
@@ -58,20 +61,37 @@ def _read_proof(path: str) -> bytes:
     return data
 
 
-def _container(data: bytes) -> str:
-    """'internal', 'legacy' or 'jolt', as the JAX package's CLI routes a
-    proof file (serialization.detect_format)."""
-    if data[:4] == b"ZOLT" and data[4:8] == b"\x01\x00\x00\x00":
-        return "internal"
-    if data[:4] == b"ZOLT" or data[:2] == b"\x1f\x8b":
-        return "legacy"
-    import json
+def _is_internal(data: bytes) -> bool:
+    """The internal prover's ZOLT v1 container (the legacy one is v2)."""
+    return data[:4] == b"ZOLT" and data[4:8] == b"\x01\x00\x00\x00"
 
-    try:
-        json.loads(data.decode())
-        return "legacy"
-    except ValueError:          # not UTF-8, or not JSON
-        return "jolt"
+
+def _device(args):
+    """The device the internal and legacy provers run on: "cuda" for
+    --backend device, "cpu" (the kernels' plain torch versions) for
+    host."""
+    if args.backend == "mesh":
+        raise NotImplementedError("backend='mesh' is not ported yet (ROADMAP "
+                                  "Queue 1 item 6)")
+    return "cuda" if args.backend == "device" else "cpu"
+
+
+def _write(args, data: bytes) -> bytes:
+    if args.gzip:
+        import gzip
+
+        data = gzip.compress(data, mtime=0)
+    with open(args.output, "wb") as f:
+        f.write(data)
+    return data
+
+
+def _print_stages(stage_proofs) -> None:
+    for name, sp in zip(STAGE_NAMES, stage_proofs):
+        n_el = (sum(len(rp) for rp in sp.round_polys) + len(sp.challenges)
+                + len(sp.final_claims))
+        print(f"  {name:<18} rounds={len(sp.round_polys):>3}  field elements={n_el:>5}"
+              f"  ({n_el * 32} bytes)")
 
 
 def _deserialize_jolt(data: bytes):
@@ -135,9 +155,7 @@ def cmd_decode(args) -> int:
 
 def cmd_prove(args) -> int:
     if not args.jolt_format:
-        raise _not_ported("prove with --legacy (the device-accelerated legacy "
-                          "container)" if args.legacy else
-                          f"prove without --jolt-format ({_INTERNAL})")
+        return _prove_internal_or_legacy(args)
     from .zkvm.pipeline import prove_jolt
 
     t0 = time.time()
@@ -182,15 +200,80 @@ def cmd_prove(args) -> int:
     return 0
 
 
+def _prove_internal_or_legacy(args) -> int:
+    """prove --legacy (the ZOLT v2 or JSON container) or the default
+    internal ZOLT v1 prover, on the device of --backend."""
+    device = _device(args)
+    t0 = time.time()
+    emu = _load_and_run(args.elf)
+    t1 = time.time()
+    if args.legacy:
+        from . import serialization
+        from .zkvm import prove_program
+
+        proof, padded = prove_program(emu, log_k=args.log_k, device=device)
+        data = (serialization.to_json(proof).encode() if args.json
+                else serialization.serialize(proof))
+    else:
+        from .vm import elf as elf_mod
+        from .vm import pad_with_noop
+        from .zkvm.internal import prove_internal
+
+        padded = pad_with_noop(list(emu.trace))
+        _, image = elf_mod.load_file(args.elf).flat_image()
+        data = prove_internal(emu, padded, bytes(image), log_k=16,
+                              device=device).serialize()
+    t2 = time.time()
+    data = _write(args, data)
+    print(f"trace: {emu.cycle} cycles (padded {len(padded)})")
+    print(f"emulate: {t1 - t0:.2f}s  prove: {t2 - t1:.2f}s")
+    print(f"proof: {len(data)} bytes -> {args.output}")
+    return 0
+
+
+def _verify_internal(data: bytes) -> int:
+    from .zkvm.internal import deserialize_internal, verify_internal
+
+    t0 = time.time()
+    try:
+        verify_internal(deserialize_internal(data))
+    except AssertionError as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(f"PASSED ({time.time() - t0:.2f}s, format=zolt-internal)")
+    return 0
+
+
+def _verify_legacy(data: bytes) -> int:
+    from . import serialization
+    from .r1cs import constraints as rc
+    from .zkvm import verify
+    from .zkvm.stages import _ceil_log2
+
+    try:
+        fmt = serialization.detect_format(data)
+        proof = (serialization.from_json(data.decode()) if fmt == "json"
+                 else serialization.deserialize(data))
+    except Exception as e:
+        print(f"FAILED: unrecognized proof format ({e})")
+        return 1
+    ncv = proof.log_t + _ceil_log2(rc.NUM_CONSTRAINTS)
+    t0 = time.time()
+    try:
+        verify(proof, ncv)
+    except AssertionError as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(f"PASSED ({time.time() - t0:.2f}s, format={fmt})")
+    return 0
+
+
 def cmd_verify(args) -> int:
     data = _read_proof(args.proof)
-    kind = _container(data)
-    if kind == "internal":
-        raise _not_ported(f"verify of {_INTERNAL}")
+    if _is_internal(data):
+        return _verify_internal(data)
     if not args.elf:
-        e = _not_ported(f"verify of {_LEGACY}")
-        raise NotImplementedError(f"{e}; a Jolt-format proof is verified "
-                                  f"with --elf")
+        return _verify_legacy(data)
     from .zkvm.jolt_verifier import VerifyError, verify_jolt
 
     t0 = time.time()
@@ -226,10 +309,23 @@ def cmd_verify(args) -> int:
 
 
 def cmd_stats(args) -> int:
+    from . import serialization
+
     data = _read_proof(args.proof)
-    kind = _container(data)
-    if kind != "jolt":
-        raise _not_ported(f"stats of {_INTERNAL if kind == 'internal' else _LEGACY}")
+    if _is_internal(data):
+        from .zkvm.internal import deserialize_internal
+
+        proof = deserialize_internal(data)
+        print(f"format: zolt-internal, {len(data)} bytes, log_t={proof.log_t}, log_k={proof.log_k}")
+        _print_stages(proof.stage_proofs)
+        return 0
+    fmt = serialization.detect_format(data)
+    if fmt != "unknown":
+        proof = (serialization.from_json(data.decode()) if fmt == "json"
+                 else serialization.deserialize(data))
+        print(f"format: {fmt}, {len(data)} bytes, log_t={proof.log_t}, log_k={proof.log_k}")
+        _print_stages(proof.stage_proofs)
+        return 0
     proof, variant = _deserialize_jolt(data)
     if proof is None:
         print("unrecognized proof format")
@@ -330,13 +426,18 @@ def main(argv=None) -> int:
     pp = sub.add_parser("prove", help="prove an ELF execution")
     pp.add_argument("elf")
     pp.add_argument("-o", "--output", default="proof.bin")
+    pp.add_argument("--json", action="store_true",
+                    help="with --legacy: write the JSON container")
+    pp.add_argument("--log-k", type=int, default=10,
+                    help="with --legacy: log2 of the RAM address space "
+                    "(default 10)")
     pp.add_argument("--jolt-format", action="store_true",
                     help="emit the Jolt-compatible arkworks proof (Dory "
-                    "commitments); the only prover ported yet")
+                    "commitments)")
     pp.add_argument("--export-preprocessing", metavar="PATH",
                     help="write the Jolt verifier preprocessing file")
     pp.add_argument("--legacy", action="store_true",
-                    help="the legacy container: not ported yet")
+                    help="emit the device-accelerated legacy container")
     pp.add_argument("--sound", action="store_true",
                     help="with --jolt-format: sound-mode stages 5-12 and the "
                     "PCS batch opening (strictly verifiable, not "
@@ -351,15 +452,17 @@ def main(argv=None) -> int:
     pp.add_argument("--backend", choices=("device", "host", "mesh"),
                     default="device",
                     help="device (the default): the wide sumcheck rounds and "
-                    "the small-scalar row MSMs on the CUDA device, which must "
-                    "be present; host: the host C tier; mesh: not ported yet")
+                    "the MSMs on the CUDA device, which must be present; "
+                    "host: the host C tier (Jolt format) or the kernels' plain "
+                    "torch versions on the CPU (the internal and legacy "
+                    "provers); mesh: not ported yet")
     pp.add_argument("--stage1-backend", choices=("device", "host", "mesh"),
                     default=None,
                     help="where stage 1's remaining rounds run (default: as "
                     "--backend); the proof bytes are the same")
     pp.set_defaults(fn=cmd_prove)
 
-    pv = sub.add_parser("verify", help="verify a Jolt-format proof")
+    pv = sub.add_parser("verify", help="verify a proof")
     pv.add_argument("proof")
     pv.add_argument("--elf", help="program ELF: verify a Jolt-format "
                     "(arkworks) proof against this program")
@@ -377,6 +480,9 @@ def main(argv=None) -> int:
     pv.add_argument("--reference-compat", action="store_true",
                     help="allow the lenient downgrade needed by reference-"
                     "produced proofs (skips the stage-3 full output check)")
+    pv.add_argument("--strict", action="store_true",
+                    help="deprecated: strict is now the default; use "
+                    "--reference-compat to opt into the lenient mode")
     pv.set_defaults(fn=cmd_verify)
 
     ps = sub.add_parser("stats", help="proof statistics")
