@@ -76,12 +76,17 @@ plane) and the compat shape (32 polys of 2^16 values below 16, 2^8 x
 sweep of device ms, at every other; C and D (the Pippenger's bucket and
 window sums) in the Pippenger at n = 2^16 and 2^18 against the native C
 MSM, D against its plain version at both and C at 2^16, with the host
-steps of a call timed; E (the scalars' digits from Fr Montgomery words)
-at 2^18 against its plain version and the host's digits, bytes equal.
+steps of a call timed; C also on the scalars the internal prover commits
+with its opening (the RAM post-values at 2^17, whose largest bucket holds
+a third of the points, and the rd values at 2^16), affine equal to its
+plain version and timed, each shape's bucket plan printed (entries,
+largest bucket, chunks a pass); E (the scalars' digits from Fr
+Montgomery words) at 2^18 against its plain version and the host's
+digits, bytes equal.
 Kernel B's path bound is that of the work its wrapper counted in each
 prove, and its path device ms the sum of CUDA events around each of its
 launches there (the profiled prove's torch.profiler figure beside it).
-B's and D's device ms before their redesign, recorded figures, are
+B's, C's and D's device ms before their redesign, recorded figures, are
 printed beside this run's on lines of their own.
 After phase 5:
 6. verify: the port's verifier (zkvm/jolt_verifier.py, host Python over
@@ -137,6 +142,8 @@ After phase 5:
    first 2^17 powers of the g1 phase's, the same τ): the three
    commitments equal to the native C MSM's, verify_internal accepting, a
    copy with the first opened evaluation + 1 failing the pairing check.
+   Each prove prints each kernel C launch's ms (CUDA events) beside its
+   largest bucket and its entries.
 
 The last three lines are the kernels' JSON (every kernel, with each
 path's launches and figures), the nvidia-smi card line and the result
@@ -828,10 +835,11 @@ def affine_of(pt) -> list:
                            for c in pt))
 
 
-def check_g1(torch, stats: dict):
-    """Kernels A-D against their plain versions and the host C tier.
+def check_g1(torch, stats: dict, log_t: int):
+    """Kernels A-E against their plain versions and the host C tier (C
+    also on the internal prover's RAM and rd polys at T = 2^log_t).
     Returns the KZG SRS of 2^18 powers, whose points the Pippenger takes
-    (and run_kzg reuses)."""
+    (and run_kzg and run_internal reuse)."""
     from zolt_tpu_torch.curve import device as dev
     from zolt_tpu_torch.pcs import srs as srs_mod
 
@@ -861,6 +869,7 @@ def check_g1(torch, stats: dict):
     say("g1", f"KZG SRS of 2^{KZG_LOG_N} powers in "
               f"{time.perf_counter() - t0:.2f} s (host, native C)")
     check_pippenger(torch, stats, kzg)
+    check_bucket_polys(torch, stats, kzg, log_t)
     return kzg
 
 
@@ -871,17 +880,24 @@ SOUND_ROWS = (40, 1 << 10, 1 << 10, 1)
 COMPAT_ROWS = (32, 1 << 8, 1 << 8, 4)
 
 
-# Kernels B's and D's device ms before their redesign (B a warp a row, D
-# a thread a window; this script on an NVIDIA H100 80GB HBM3 at 700.00 W):
-# recorded figures, printed on a line of their own beside this run's and
-# kept out of the kernels line, which holds only what this run measured.
+# Kernels B's, C's and D's device ms before their redesign (B a warp a
+# row, D a thread a window, C a warp a bucket; this script on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; C's opening figure the internal prove's
+# with its opening, 22 launches): recorded figures, printed on a line of
+# their own beside this run's and kept out of the kernels line, which
+# holds only what this run measured.
 PRIOR_DEVICE_MS = {"row_plane_sums": 10.2933, "row_plane_sums_compat": 1.6565,
-                   "window_sums": 11.5800, "window_sums_path": 284.0506}
+                   "window_sums": 11.5800, "window_sums_path": 284.0506,
+                   "bucket_accumulate": 2.1448,
+                   "bucket_accumulate_path": 35.2454,
+                   "bucket_accumulate_opening": 36.9482}
 
 
 def say_prior(phase: str, key: str, what: str, now: float | None) -> None:
-    """This run's device ms of kernel B or D beside PRIOR_DEVICE_MS[key]."""
-    name = key.removesuffix("_path").removesuffix("_compat")
+    """This run's device ms of kernel B, C or D beside
+    PRIOR_DEVICE_MS[key]."""
+    name = key.removesuffix("_path").removesuffix("_compat").removesuffix(
+        "_opening")
     say(phase, f"{name} {what}: device {ms_text(now)} in this run; "
                f"{PRIOR_DEVICE_MS[key]:.4f} ms before the redesign "
                f"(recorded, not measured here)")
@@ -1019,6 +1035,30 @@ def msm_inputs(kzg, n: int, seed: int):
     return pts, sc
 
 
+def skewed_inputs(base: list, n: int, seed: int):
+    """n points and scalars whose digits fill the buckets as the internal
+    prover's RAM post-values do: the points repeat the
+    16 of `base` and their negations, every 37th the identity, so that
+    any bucket meets P + P and P + (−P) inside its chunks and across
+    them; the scalars are 32-bit words, 35 % of them one address, 15 %
+    another, 30 % counters below 2^16, 10 % zero, 10 % random."""
+    import numpy as np
+
+    from zolt_tpu_torch.curve import host
+
+    rng = np.random.default_rng(seed)
+    pts = [None if i % 37 == 5 else
+           host.neg(base[i % 16]) if (i // 16) % 2 else base[i % 16]
+           for i in range(n)]
+    u = rng.random(n)
+    counters = rng.integers(1, 1 << 16, n)
+    words = rng.integers(0, 1 << 32, n)
+    sc = [0x80000010 if v < 0.35 else 0x7FFFEF00 + int(c) % 256
+          if v < 0.5 else int(c) if v < 0.8 else 0 if v < 0.9 else int(w)
+          for v, c, w in zip(u, counters, words)]
+    return pts, sc
+
+
 def check_pippenger(torch, stats: dict, kzg) -> None:
     """Kernels C and D: the Pippenger at n = 2^16 and 2^18 equal to the
     native C MSM; at 2^16 each kernel's buckets and window totals affine
@@ -1088,8 +1128,11 @@ def check_pippenger(torch, stats: dict, kzg) -> None:
                 lambda: pippenger.bucket_sums(ent, seg, ptab, valid),
                 lambda: pippenger.bucket_sums_plain(ent, seg, ptab, valid),
                 *pippenger.bucket_work(ent, seg, valid, n),
-                f"n = 2^{log_n}, 32 windows x 256 buckets", 0, plain_iters=1,
-                phase="g1", device_name=DEVICE_NAMES["bucket_accumulate"])
+                f"n = 2^{log_n} random scalars: {plan_text(seg)}", 0,
+                plain_iters=1, phase="g1",
+                device_name=DEVICE_NAMES["bucket_accumulate"])
+        say_prior("g1", "bucket_accumulate", f"at n = 2^{log_n}",
+                  stats["bucket_accumulate"]["device_ms"])
         timings(torch, stats, "window_sums",
                 lambda: pippenger.window_sums(*B),
                 lambda: pippenger.window_sums_plain(*B),
@@ -1098,6 +1141,46 @@ def check_pippenger(torch, stats: dict, kzg) -> None:
                 device_name=DEVICE_NAMES["window_sums"])
         say_prior("g1", "window_sums", "at 32 windows",
                   stats["window_sums"]["device_ms"])
+
+
+def plan_text(seg) -> str:
+    """A bucket plan's entries, largest bucket and kernel C's chunks a
+    pass."""
+    from zolt_tpu_torch.msm import pippenger
+
+    top = int((seg[1:] - seg[:-1]).max())
+    chunks = [p.numel() - 1 for p in pippenger.bucket_chunks(seg)]
+    return (f"{int(seg[-1])} entries, largest bucket {top}, chunks a pass "
+            f"{chunks}")
+
+
+def check_bucket_polys(torch, stats: dict, kzg, log_t: int) -> None:
+    """Kernel C on the scalars the internal prover commits with its
+    opening (internal_polys at T = 2^log_t: the RAM post-values, whose
+    largest bucket holds a third of the points, and the rd values), over
+    the SRS's first points: buckets affine equal to the plain version's,
+    timed as in timings()."""
+    from zolt_tpu_torch.msm import pippenger
+
+    polys = internal_polys(*opening_inputs(log_t))
+    table, valid_all = pippenger.srs_table(kzg, "cuda")
+    for name, poly in (("ram", polys[1]), ("rd", polys[2])):
+        n = len(poly)
+        ptab, valid = table[:n], valid_all[:n]
+        ent, seg = pippenger.bucket_plan(pippenger.int_digits(poly, "cuda"))
+        B = pippenger.bucket_sums(ent, seg, ptab, valid)
+        if affine_of(B) != affine_of(
+                pippenger.bucket_sums_plain(ent, seg, ptab, valid)):
+            raise AssertionError(f"kernel C differs from its plain version "
+                                 f"on the {name} poly")
+        timings(torch, stats, f"bucket_accumulate_{name}",
+                lambda: pippenger.bucket_sums(ent, seg, ptab, valid),
+                lambda: pippenger.bucket_sums_plain(ent, seg, ptab, valid),
+                *pippenger.bucket_work(ent, seg, valid, n),
+                f"the internal prover's {name} poly, n = 2^"
+                f"{n.bit_length() - 1}: {plan_text(seg)}", 0, plain_iters=1,
+                phase="g1",
+                device_name=DEVICE_NAMES["bucket_accumulate"])
 
 
 def run_kzg(torch, kzg) -> dict:
@@ -1150,6 +1233,8 @@ def run_kzg(torch, kzg) -> dict:
                               "the HyperKZG path")
     say_prior("kzg", "window_sums_path", "on the HyperKZG path",
               figures["window_sums"]["device_ms"])
+    say_prior("kzg", "bucket_accumulate_path", "on the HyperKZG path",
+              figures["bucket_accumulate"]["device_ms"])
     secs = dict(commit=t1 - t0, open=t2 - t1, verify=t3 - t2)
     say("kzg", f"HyperKZG at 2^{KZG_LOG_N} on the card: commit, open and "
                f"verify pass, the commitment equals the native C MSM; "
@@ -1173,7 +1258,11 @@ def g1_path_figures(prof, counts: dict, events: dict, phase: str,
         figures[k] = dict(launches=c["launches"], bound_ms=b_ms,
                           bound_by=b_by, device_ms=dev_ms[k],
                           device_ms_events=round(sum(events[k]), 4))
-        say(phase, f"{k} on {what}: {c['launches']} launches, "
+        if "kernels" in c:
+            figures[k]["kernel_launches"] = c["kernels"]
+        passes = (f" ({c['kernels']} kernel launches)" if "kernels" in c
+                  else "")
+        say(phase, f"{k} on {what}: {c['launches']} launches{passes}, "
                    f"{c['bytes']} bytes, {c['imads']} IMADs, bound "
                    f"{b_ms:.4f} ms by {b_by}, device {ms_text(dev_ms[k])}; "
                    f"by CUDA events {figures[k]['device_ms_events']:.4f} ms "
@@ -1447,7 +1536,8 @@ DEVICE_NAMES = {"fold": "fold_kernel", "product_evals": "product_evals_kernel",
 def recorded_ms(prof, counts: dict, names, phase: str) -> dict:
     """Device ms by kernel from a profile, for each kernel whose launches
     there the profiler recorded as many times as its wrapper counted them
-    (`counts`, as read_launches gives them); None, and a line saying so,
+    (`counts`, as read_launches gives them; kernel C's a launch a pass,
+    its "kernels"); None, and a line saying so,
     where it recorded another number: torch.profiler now and then loses
     the first kernel of a profile when it comes from the kernel library
     (PERF.md, "The measurement gap"), so the G1 phases also time each
@@ -1455,7 +1545,7 @@ def recorded_ms(prof, counts: dict, names, phase: str) -> dict:
     on_dev, dev_ms = device_kernel_counts(prof.key_averages())
     out = {}
     for k in names:
-        want = counts[k]["launches"]
+        want = counts[k].get("kernels", counts[k]["launches"])
         out[k] = dev_ms[k] if on_dev[k] == want else None
         if out[k] is None:
             say(phase, f"{k}: torch.profiler recorded {on_dev[k]} launches "
@@ -2141,6 +2231,49 @@ def run_legacy(torch, log_t: int) -> dict:
 OPENING_SRS = 1 << 17
 
 
+_OPENING_INPUTS: dict = {}
+
+
+def opening_inputs(log_t: int):
+    """(emu, padded trace, image) of the sum-loop guest at T = 2^log_t, as
+    prove_internal takes them; made once a run (the g1 phase's kernel C
+    checks and the internal phase share them)."""
+    from zolt_tpu_torch.vm import elf as elf_mod
+    from zolt_tpu_torch.vm import pad_with_noop, run_elf
+
+    if log_t not in _OPENING_INPUTS:
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "sum_loop.elf")
+            with open(path, "wb") as f:
+                f.write(sum_loop_elf(log_t))
+            image = bytes(elf_mod.load_file(path).flat_image()[1])
+            emu = run_elf(path)
+        _OPENING_INPUTS[log_t] = (emu, pad_with_noop(list(emu.trace)), image)
+    return _OPENING_INPUTS[log_t]
+
+
+@contextlib.contextmanager
+def captured_segs():
+    """While open, each call of pippenger.bucket_sums (which msm_digits
+    looks up at call time) appends its bucket offsets to the list this
+    yields. The wrapper's counters stay the ones counters() reads."""
+    from zolt_tpu_torch.msm import pippenger
+
+    orig = pippenger.bucket_sums
+    got = []
+
+    def spy(ent, seg, pts, valid):
+        got.append(seg)
+        return orig(ent, seg, pts, valid)
+
+    spy.counts = orig.counts
+    pippenger.bucket_sums = spy
+    try:
+        yield got
+    finally:
+        pippenger.bucket_sums = orig
+
+
 def internal_polys(emu, padded, image: bytes) -> list:
     """The three committed polys as prove_internal makes them (bytecode,
     RAM post-values, rd values), zero-padded to powers of two."""
@@ -2176,17 +2309,9 @@ def run_internal(torch, log_t: int, kzg) -> dict:
     from zolt_tpu_torch.pcs.hyperkzg import HyperKZGBatchProof
     from zolt_tpu_torch.pcs.srs import INSECURE_TAU, KZGSRS, insecure_setup
     from zolt_tpu_torch.utils.log import metrics
-    from zolt_tpu_torch.vm import elf as elf_mod
-    from zolt_tpu_torch.vm import pad_with_noop, run_elf
     from zolt_tpu_torch.zkvm import internal
 
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "sum_loop.elf")
-        with open(path, "wb") as f:
-            f.write(sum_loop_elf(log_t))
-        image = bytes(elf_mod.load_file(path).flat_image()[1])
-        emu = run_elf(path)
-    padded = pad_with_noop(list(emu.trace))
+    emu, padded, image = opening_inputs(log_t)
     opening_srs = KZGSRS(powers_g1=kzg.powers_g1[:OPENING_SRS],
                          tau_g2=kzg.tau_g2, g1=kzg.g1, g2=kzg.g2)
     last = G1.scalar_mul(G1.G1_GEN, pow(INSECURE_TAU, OPENING_SRS - 1,
@@ -2205,7 +2330,7 @@ def run_internal(torch, log_t: int, kzg) -> dict:
             metrics.reset()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            with g1_events(torch) as events, \
+            with g1_events(torch) as events, captured_segs() as segs, \
                     profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 proof = internal.prove_internal(
@@ -2238,6 +2363,18 @@ def run_internal(torch, log_t: int, kzg) -> dict:
                                ("fold", "product_evals_k3"))
         figures.update(g1_path_figures(prof, work, events, "internal",
                                        f"the internal prove ({name})"))
+        c_launches = [dict(ms=ms, largest_bucket=int((g[1:] - g[:-1]).max()),
+                           entries=int(g[-1]))
+                      for ms, g in zip(events["bucket_accumulate"], segs)]
+        figures["bucket_accumulate"]["each_launch"] = c_launches
+        say("internal", f"bucket_accumulate in the internal prove ({name}), "
+                        f"each launch by CUDA events beside its largest "
+                        f"bucket and entries: "
+                        f"{[tuple(c.values()) for c in c_launches]}")
+        if name == "opening":
+            say_prior("internal", "bucket_accumulate_opening",
+                      "on the internal prove with its opening",
+                      figures["bucket_accumulate"]["device_ms"])
         blob = proof.serialize()
         digest = hashlib.sha256(blob).hexdigest()
         if name == "prove":
@@ -2347,7 +2484,14 @@ def kernels_json(stats: dict, launches: dict, path: dict,
         if name in KZG_PATH:
             entry.update({f"path_{k}": v for k, v in
                           kzg["figures"][name].items()
-                          if k.startswith(("bound_ms", "device_ms"))})
+                          if k.startswith(("bound_ms", "device_ms",
+                                           "kernel_launches"))})
+        if name == "bucket_accumulate":
+            entry.update({f"{p}_shape": {k: stats[f"{name}_{p}"][k] for k in
+                                         keys + ("shape",)}
+                          for p in ("ram", "rd")})
+            entry["opening_each_launch"] = (
+                internal["opening"]["figures"][name]["each_launch"])
         if on_prove:
             lanes = ("lanes", "lanes_ms")
             entry.update(sound_launches=sound_launches[name],
@@ -2410,7 +2554,7 @@ def main() -> int:
 
     stats: dict = {}
     check_kernels(torch, stats)
-    kzg_srs = check_g1(torch, stats)
+    kzg_srs = check_g1(torch, stats, args.log_t)
     launches, path, compat_proof = run_slice(torch, args.log_t, args.profile)
     sound_launches, sound, sound_proof = run_sound(torch, args.log_t,
                                                    args.profile)

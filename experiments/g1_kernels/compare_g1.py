@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Kernels B and D of two checkouts of the repository, on one GPU, in turns.
+"""Kernels B, C and D of two or more checkouts of the repository, on one
+GPU, in turns.
 
-    python3 experiments/g1_kernels/compare_g1.py PARENT_ROOT CHANGE_ROOT
+    python3 experiments/g1_kernels/compare_g1.py [--c-only] ROOT ROOT [ROOT ...]
 
-runs the measurements below once for each root in the order parent,
-change, change, parent, each in a process of its own (each root builds
-its own kernels), and prints one JSON line a run, then the card's name
-and power limit:
+runs the measurements below once for each root in the order given, then
+in the reverse order (two roots: parent, change, change, parent), each in
+a process of its own (each root builds its own kernels), and prints one
+JSON line a run, then the card's name and power limit. --c-only measures
+kernel C alone:
 
 - kernel B (the row MSMs) at chip_smoke.py's sound shape (40 one-hot
   cubes of 2^20 in 2^10 x 2^10, one plane) and compat shape (32 polys of
   2^16 values below 16, 2^8 x 2^8, four planes), same seeds in both
   roots: device ms a call by torch.profiler (kernel name
   "row_msm_kernel", 20 calls) and by CUDA events around each launch;
+- kernel C (the bucket sums) on the inputs this checkout makes once and
+  hands to every run: chip_smoke.py's 2^16-point Pippenger (random
+  scalars), and the internal prover's RAM post-values (2^17) and rd
+  values (2^16) of the sum-loop guest at T = 2^16 over the first KZG SRS
+  powers: device ms a call by torch.profiler (kernel names holding
+  "bucket_kernel", 20 calls, also by kernel name: one a pass) and by CUDA
+  events around each call, and a sha256 of the buckets in affine form,
+  which must agree across runs;
 - kernel D (the window sums) on the buckets of the 2^16-point Pippenger
   of chip_smoke.py: device ms a call, the same two ways;
 - the T = 2^16 commitment phase alone (commit_and_absorb on "cuda"), in
@@ -26,6 +36,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -36,8 +47,37 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def run(root: str) -> dict:
+C_SHAPES = ("random_2^16", "ram_2^17", "rd_2^16")
+
+
+def c_inputs(where: str) -> None:
+    """Kernel C's inputs, made with this checkout's code and saved to
+    `where` as {shape}.pt (CPU tensors: the affine table, valid, digits)."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    import chip_smoke
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.pcs import srs as srs_mod
+
+    kzg = srs_mod.insecure_setup(1 << 17)
+    pts, sc = chip_smoke.msm_inputs(kzg, 1 << 16, 16)
+    polys = chip_smoke.internal_polys(*chip_smoke.opening_inputs(16))
+    for name, (p, v) in zip(C_SHAPES, ((pts, sc),
+                                       (kzg.powers_g1[:len(polys[1])],
+                                        polys[1]),
+                                       (kzg.powers_g1[:len(polys[2])],
+                                        polys[2]))):
+        ptab, valid = pippenger.affine_table(p)
+        torch.save(dict(ptab=ptab, valid=valid,
+                        digits=pippenger.int_digits(v, "cpu")),
+                   os.path.join(where, f"{name}.pt"))
+
+
+def run(root: str, inputs: str, c_only: bool) -> dict:
     sys.path.insert(0, root)
+    import hashlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -69,13 +109,31 @@ def run(root: str) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in p.key_averages()
-                 if name in e.key)
+        rows = [e for e in p.key_averages() if name in e.key]
         with events(entry) as ev:
             for _ in range(iters):
                 fn()
-        return {"profiler_ms": round(us / 1e3 / iters, 4),
+        return {"profiler_ms": round(sum(e.self_device_time_total
+                                         for e in rows) / 1e3 / iters, 4),
+                "by_kernel_ms": {re.search(name + r"(<\w+>)?", e.key)[0]:
+                                 round(e.self_device_time_total / 1e3
+                                       / iters, 4) for e in rows},
                 "events_ms": round(sum(ev) / len(ev), 4)}
+
+    out["ptxas_C"] = {k: v for k, v in smoke_here.ptxas_summary(
+        _build.kernels().ptxas_log).items() if "bucket" in k}
+    for name in C_SHAPES:
+        t = torch.load(os.path.join(inputs, f"{name}.pt"))
+        ptab, valid = t["ptab"].cuda(), t["valid"].cuda()
+        ent, seg = pippenger.bucket_plan(t["digits"].cuda())
+        got = smoke_here.affine_of(pippenger.bucket_sums(ent, seg, ptab,
+                                                         valid))
+        out[f"C_{name}"] = dict(device(
+            lambda: pippenger.bucket_sums(ent, seg, ptab, valid),
+            "bucket_kernel", "zg1_bucket_accumulate"),
+            affine_sha256=hashlib.sha256(repr(got).encode()).hexdigest())
+    if c_only:
+        return out
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20261017)
@@ -133,23 +191,40 @@ def run(root: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(run(os.path.abspath(sys.argv[2]))), flush=True)
+    args = sys.argv[1:]
+    c_only = "--c-only" in args
+    args = [a for a in args if a != "--c-only"]
+    if len(args) == 3 and args[0] == "--one":
+        print(json.dumps(run(os.path.abspath(args[1]), args[2], c_only)),
+              flush=True)
         return 0
-    if len(sys.argv) != 3:
+    if len(args) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    parent, change = sys.argv[1:]
-    for root in (parent, change, change, parent):
+    digests = set()
+    with tempfile.TemporaryDirectory() as inputs:
         t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True, text=True)
-        lines = done.stdout.strip().splitlines()
-        if done.returncode or not lines:
-            print(done.stdout + done.stderr[-4000:], file=sys.stderr)
-            return 1
-        print(lines[-1].rstrip("}") + f', "seconds": '
-              f'{time.perf_counter() - t0:.1f}}}', flush=True)
+        c_inputs(inputs)
+        print(f"kernel C's inputs made in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for root in args + args[::-1]:
+            t0 = time.perf_counter()
+            done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--one", root, inputs]
+                                  + ["--c-only"] * c_only,
+                                  capture_output=True, text=True)
+            lines = done.stdout.strip().splitlines()
+            if done.returncode or not lines:
+                print(done.stdout + done.stderr[-4000:], file=sys.stderr)
+                return 1
+            got = json.loads(lines[-1])
+            digests.add(tuple(got[f"C_{c}"]["affine_sha256"]
+                              for c in C_SHAPES))
+            print(lines[-1].rstrip("}") + f', "seconds": '
+                  f'{time.perf_counter() - t0:.1f}}}', flush=True)
+    if len(digests) != 1:
+        print("kernel C's buckets differ between the runs", file=sys.stderr)
+        return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

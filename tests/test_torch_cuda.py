@@ -444,32 +444,39 @@ def _edge_windows(pts: list, seed: int, device="cuda"):
 
 
 @pytest.mark.parametrize("n,windows", [(32, "msm"), (1000, "msm"),
-                                       (1 << 14, "msm"), (256, "edge")])
+                                       (1 << 14, "msm"), (256, "edge"),
+                                       (1 << 14, "skewed")])
 def test_pippenger_kernels_match_plain_and_native(gen, n, windows):
     """Kernels C and D, affine, against their plain versions, and the
     whole Pippenger against the native C MSM: duplicates, a negation, the
     identity, zero scalars. Kernel E's digits equal its plain version's
     and the host's. "edge": kernel D also on windows whose buckets are
     all empty, hold one point (at 255, at 1), identities, or points that
-    meet as P + P and P + (−P) in its tree."""
-    from chip_smoke import affine_of, msm_inputs
+    meet as P + P and P + (−P) in its tree. "skewed": scalars spread as
+    the RAM post-values are (chip_smoke.skewed_inputs: a bucket of some
+    5600 entries, four passes of kernel C), over 16 points repeated with
+    their negations. The wrapper counts one call and a launch a pass."""
+    from chip_smoke import affine_of, msm_inputs, skewed_inputs
     from zolt_tpu_torch.field import limb
     from zolt_tpu_torch.msm import pippenger
     from zolt_tpu_torch.native import g1_msm_native
     from zolt_tpu_torch.pcs import srs as srs_mod
 
-    kzg = srs_mod.insecure_setup(n)
-    pts, sc = msm_inputs(kzg, n, n)
+    if windows == "skewed":
+        pts, sc = skewed_inputs(srs_mod.insecure_setup(16).powers_g1, n, n)
+    else:
+        pts, sc = msm_inputs(srs_mod.insecure_setup(n), n, n)
     ptab, valid = pippenger.affine_table(pts, "cuda")
     digits = pippenger.int_digits(sc, "cuda")
     ent, seg = pippenger.bucket_plan(digits)
-    before = (pippenger.bucket_sums.counts["launches"],
-              pippenger.window_sums.counts["launches"])
+    passes = len(pippenger.bucket_chunks(seg))
+    assert windows != "skewed" or passes == 4
+    c, d = pippenger.bucket_sums.counts, pippenger.window_sums.counts
+    before = (c["launches"], c["kernels"], d["launches"])
     B = pippenger.bucket_sums(ent, seg, ptab, valid)
     W = pippenger.window_sums(*B)
-    assert (pippenger.bucket_sums.counts["launches"],
-            pippenger.window_sums.counts["launches"]) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert (c["launches"], c["kernels"], d["launches"]) == (
+        before[0] + 1, before[1] + passes, before[2] + 1)
     assert affine_of(B) == affine_of(
         pippenger.bucket_sums_plain(ent, seg, ptab, valid))
     assert affine_of(W) == affine_of(pippenger.window_sums_plain(*B))

@@ -297,12 +297,70 @@ def _msm_inputs(n: int, seed: int):
     return pts, sc
 
 
-@pytest.mark.parametrize("n", [64, 512])
-def test_pippenger_matches_jax_oracle(n):
-    pts, sc = _msm_inputs(n, seed=n)
+def _skewed_inputs(n: int, seed: int):
+    """chip_smoke.skewed_inputs over 16 random points: RAM-like scalars,
+    points that repeat with their negations, identities."""
+    import chip_smoke
+
+    return chip_smoke.skewed_inputs(host.random_points(16, seed=seed), n,
+                                    seed)
+
+
+@pytest.mark.parametrize("n,kind", [pytest.param(64, "random", id="64"),
+                                    pytest.param(512, "random", id="512"),
+                                    pytest.param(512, "skewed", id="skewed")])
+def test_pippenger_matches_jax_oracle(n, kind, monkeypatch):
+    """"skewed": kernel C's plan at CHUNK = 4 on RAM-like scalars, so the
+    largest bucket (some 180 entries) takes three reduction passes, and
+    P + P, P + (−P) and identities meet inside chunks and across them."""
+    if kind == "skewed":
+        pts, sc = _skewed_inputs(n, seed=n)
+        monkeypatch.setattr(pippenger, "CHUNK", 4)
+        ent, seg = pippenger.bucket_plan(pippenger.int_digits(sc, "cpu"))
+        assert len(pippenger.bucket_chunks(seg)) == 4
+    else:
+        pts, sc = _msm_inputs(n, seed=n)
     want = jax_pippenger.msm_oracle(pts, sc)
     assert pippenger.pippenger(pts, sc, "cpu") == want
     assert pippenger.msm_oracle(pts, sc) == want
+
+
+@pytest.mark.parametrize("kind,L", [("random", 2), ("random", 16),
+                                    ("skewed", 4), ("skewed", 16)])
+def test_bucket_chunks_tile_each_bucket(kind, L, monkeypatch):
+    """Kernel C's plan: pass 0's chunks tile the entries once, none
+    crosses a bucket or holds more than L; each later pass does the same
+    over the previous pass's chunk sums, grouped by bucket; the last has
+    one chunk a bucket, and the pass count is the fewest that bring the
+    largest bucket to one point: ceil(log_L m), within ceil(log_L n)."""
+    n = 512
+    sc = (_skewed_inputs(n, seed=3)[1] if kind == "skewed" else
+          _msm_inputs(n, seed=3)[1])
+    _, seg = pippenger.bucket_plan(pippenger.int_digits(sc, "cpu"))
+    monkeypatch.setattr(pippenger, "CHUNK", L)
+    plan = pippenger.bucket_chunks(seg)
+    nb = seg.numel() - 1
+    s = seg.long()
+    for k, off in enumerate(plan):
+        assert off.dtype == torch.int32
+        off = off.long()
+        size = off[1:] - off[:-1]
+        assert int(off[0]) == 0
+        assert int(off[-1]) == int(s[-1]) and bool((size <= L).all())
+        if k == len(plan) - 1:
+            assert torch.equal(off, s)
+            break
+        assert bool((size >= 1).all())          # each item in one chunk
+        assert bool(torch.isin(s, off).all())   # no chunk crosses a bucket
+        bucket = torch.searchsorted(s, off[:-1], right=True) - 1
+        s = torch.zeros(nb + 1, dtype=torch.int64)
+        s[1:] = torch.cumsum(torch.bincount(bucket, minlength=nb), 0)
+    top = int((seg[1:] - seg[:-1]).max())
+    passes = len(plan)
+    assert top <= L ** passes and (passes == 1 or top > L ** (passes - 1))
+    assert passes <= int(np.ceil(np.log(n) / np.log(L)))
+    if kind == "skewed":
+        assert top > n // 4 and passes >= 3 - (L == 16)
 
 
 def test_scalar_digits_from_words_equal_jax_digits():

@@ -121,7 +121,7 @@ def kernels() -> KernelLib:
     lib.zg1_double.restype = I
     lib.zg1_row_msm.argtypes = [P, L, I, I, I, P, P, P, P, P, P]
     lib.zg1_row_msm.restype = I
-    lib.zg1_bucket_accumulate.argtypes = [P, P, I, P, P, I, P, P, P, P]
+    lib.zg1_bucket_accumulate.argtypes = [P, P, P, I, P, P, I] + [P] * 7
     lib.zg1_bucket_accumulate.restype = I
     lib.zg1_window_sums.argtypes = [P, P, P, I, P, P, P, P]
     lib.zg1_window_sums.restype = I

@@ -10,7 +10,10 @@
      its bucket window·256 + digit; torch.sort orders the entries by key and
      searchsorted finds each bucket's segment (`bucket_plan`);
   3. each bucket's points are summed (`bucket_sums`: kernel C,
-     csrc/pippenger.cu, a warp a bucket with mixed additions, N adds);
+     csrc/pippenger.cu): `bucket_chunks` cuts each bucket's entries into
+     chunks of at most CHUNK, a thread sums a chunk by mixed additions,
+     and passes of full additions sum each bucket's partials, chunked the
+     same way, until one point a bucket is left;
   4. each window's Σ_b b·S_b (`window_sums`: kernel D, a block a window
      and a warp a bit plane: Σ_k 2^k · T_k, T_k the sum of the buckets
      whose index has bit k set, as `window_sums_plain` computes it);
@@ -49,6 +52,10 @@ WINDOW_BITS = 8
 N_WINDOWS = 32  # 256 bits / 8
 BUCKETS = 1 << WINDOW_BITS
 HOST_MAX = 32            # host tiers: below, the double-and-add
+# The most entries, or partial sums, kernel C sums in one chunk: a chunk
+# costs one full addition more in the next pass (16 products against
+# CHUNK · 11), about 9 % at 16.
+CHUNK = 16
 
 
 def _digits(scalars) -> np.ndarray:
@@ -126,26 +133,72 @@ def _count(wrapper, nbytes: int, imads: int) -> None:
     c["imads"] += imads
 
 
+def bucket_chunks(seg: torch.Tensor) -> list:
+    """Kernel C's plan, on the segments' device: one int32 offsets tensor a
+    pass, chunk c of the pass being [off[c], off[c+1]) of its items. Pass
+    0's items are the entries, cut at every bucket boundary and every L
+    entries within a bucket; pass k+1's are pass k's chunk sums, which
+    stay grouped by bucket, cut the same way; the last pass has one chunk
+    a bucket (len(seg) offsets, empty for an empty bucket). So no chunk
+    holds more than L items, and a bucket of m entries needs ceil(log_L m)
+    passes (at least one): the largest sets the count. L is CHUNK."""
+    L = CHUNK
+    d = seg.device
+    nb = seg.numel() - 1
+    cnt = (seg[1:] - seg[:-1]).long()
+    top = int(cnt.max()) if nb else 0
+    levels = 0
+    while top > L ** (levels + 1):
+        levels += 1
+    # each bucket's chunks in pass k: ceil(m / L^(k+1)) of its m entries
+    pers = [(cnt + L ** (k + 1) - 1) // L ** (k + 1) for k in range(levels)]
+    sizes = torch.stack([p.sum() for p in pers]).tolist() if levels else []
+    plan, s = [], seg.long()
+    for per, m in zip(pers, sizes):
+        first = torch.zeros(nb + 1, dtype=torch.int64, device=d)
+        first[1:] = torch.cumsum(per, 0)
+        b = torch.repeat_interleave(torch.arange(nb, device=d), per,
+                                    output_size=m)
+        start = s[b] + (torch.arange(m, device=d) - first[b]) * L
+        plan.append(torch.cat([start, s[-1:]]).to(torch.int32))
+        s = first
+    plan.append(s.to(torch.int32))
+    return plan
+
+
+def _chunk_keys(off: torch.Tensor) -> torch.Tensor:
+    """The chunk of each item of a pass, from its offsets."""
+    return torch.repeat_interleave(
+        torch.arange(off.numel() - 1, device=off.device),
+        (off[1:] - off[:-1]).long())
+
+
 def bucket_sums_plain(ent, seg, pts, valid):
-    """The torch version of kernel C (any device): each segment's points
-    summed by `_segment_sums`. Returns three (nbuckets, 8) Jacobian word
-    tensors."""
+    """The torch version of kernel C (any device), by the kernel's plan
+    (`bucket_chunks`): `_segment_sums` keyed by pass 0's chunks over the
+    valid entries' points, then keyed by each later pass's chunks over the
+    partials. Returns three (nbuckets, 8) Jacobian word tensors."""
     d = pts.device
-    nb, n = seg.numel() - 1, pts.shape[0]
-    key = torch.repeat_interleave(torch.arange(nb, device=d),
-                                  (seg[1:] - seg[:-1]).long())
+    n = pts.shape[0]
+    plan = bucket_chunks(seg)
+    key = _chunk_keys(plan[0])
     idx = ent.long() % n
     keep = valid[idx].bool()
     key, idx = key[keep], idx[keep]
     one = limb.encode(1, FP_C, d)
-    return _segment_sums(key, pts[idx, :8], pts[idx, 8:],
-                         one.expand(len(idx), 8), nb)
+    x, y, z = _segment_sums(key, pts[idx, :8], pts[idx, 8:],
+                            one.expand(len(idx), 8), plan[0].numel() - 1)
+    for off in plan[1:]:
+        x, y, z = _segment_sums(_chunk_keys(off), x, y, z, off.numel() - 1)
+    return x, y, z
 
 
 def bucket_sums(ent: torch.Tensor, seg: torch.Tensor, pts: torch.Tensor,
                 valid: torch.Tensor):
-    """Each bucket's sum of points: kernel C on CUDA tensors,
-    `bucket_sums_plain` on CPU tensors."""
+    """Each bucket's sum of points: kernel C on CUDA tensors (one launch a
+    pass of `bucket_chunks`' plan; counts["launches"] counts the calls,
+    counts["kernels"] the launches), `bucket_sums_plain` on CPU
+    tensors."""
     d = pts.device
     if d.type == "cpu":
         return bucket_sums_plain(ent, seg, pts, valid)
@@ -154,19 +207,28 @@ def bucket_sums(ent: torch.Tensor, seg: torch.Tensor, pts: torch.Tensor,
     if ent.dtype != torch.int32 or seg.dtype != torch.int32:
         raise ValueError("bucket_sums takes int32 entries and offsets")
     nb, n = seg.numel() - 1, pts.shape[0]
+    plan = bucket_chunks(seg)
+    chunks = torch.tensor([p.numel() - 1 for p in plan], dtype=torch.int32)
+    rows = max(1, int(chunks[:-1].sum()))
+    part = [torch.empty((rows, 8), dtype=torch.int32, device=d)
+            for _ in range(3)]
     outs = [torch.empty((nb, 8), dtype=torch.int32, device=d)
             for _ in range(3)]
+    bounds = torch.cat(plan)
     with torch.cuda.device(d):
         rc = _build.kernels().lib.zg1_bucket_accumulate(
-            ent.data_ptr(), seg.data_ptr(), nb, pts.contiguous().data_ptr(),
-            valid.data_ptr(), n, *[o.data_ptr() for o in outs],
+            ent.data_ptr(), bounds.data_ptr(),
+            chunks.data_ptr(), len(plan), pts.contiguous().data_ptr(),
+            valid.data_ptr(), n, *[t.data_ptr() for t in part + outs],
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"bucket_accumulate ({nb} buckets)")
+    _build.check(rc, f"bucket_accumulate ({nb} buckets, {len(plan)} passes)")
     _count(bucket_sums, *bucket_work(ent, seg, valid, n))
+    bucket_sums.counts["kernels"] += int((chunks > 0).sum())
     return tuple(outs)
 
 
-bucket_sums.counts = {"launches": 0, "bytes": 0, "imads": 0}
+bucket_sums.counts = {"launches": 0, "kernels": 0, "bytes": 0,
+                      "imads": 0}
 
 
 def window_sums_plain(bx, by, bz):
