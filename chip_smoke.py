@@ -144,6 +144,24 @@ After phase 5:
    copy with the first opened evaluation + 1 failing the pairing check.
    Each prove prints each kernel C launch's ms (CUDA events) beside its
    largest bucket and its entries.
+12. mesh: the mesh backend (zolt_tpu_torch/parallel/mesh.py) on
+   make_mesh(["cuda:0"] * MESH_SHARDS), four shards of the one card, so
+   every shard's kernels, the cross-shard sums, the gather of the shards'
+   prefixes and kernel A's ladder run on it (the same code puts a shard on
+   each of cuda:0..7). sharded_sumcheck_prove at 2^16, k = 3, tail 0: its
+   round evals, challenges, finals and transcript equal to the
+   single-device engine's on the same tables. prove_jolt(elf, backend="mesh") of the
+   sum-loop guest at T = 2^log_t, tail 0, compat and sound, each timed
+   beside the device prove of phases 4-5, its bytes equal to that prove's
+   and at T = 2^16 to JAX_DIGEST_T16 / JAX_SOUND_DIGEST_T16, with its peak
+   device memory and each kernel's launches, path bound and device ms by
+   CUDA events; every kernel of MESH_PATH must launch. msm_mesh at 2^16:
+   affine equal to the native C MSM, C, D and A launched, A's launches (the
+   ladder summing the shards' bucket arrays) timed by CUDA events beside
+   their bound, its first launch's words equal to pt_add_plain's. The
+   CLI's `prove --jolt-format --sound --backend mesh` and `--backend host
+   --stage1-backend mesh` at T = 2^12 on make_mesh() (every CUDA device),
+   tail 0: both files' sha256 equal to JAX_CLI_SOUND_DIGEST_T12.
 
 The last three lines are the kernels' JSON (every kernel, with each
 path's launches and figures), the nvidia-smi card line and the result
@@ -1909,6 +1927,7 @@ def run_slice(torch, log_t: int,
                                  f"{launches}")
         path_stats = path_figures(work, dev_ms, "slice", "the path")
         path_stats["peak_bytes"] = peak
+        path_stats["seconds"] = dev_s
         path_stats["row_plane_sums"]["device_ms_events"] = round(sum(b_ev), 4)
 
         reset_launches()
@@ -2423,13 +2442,290 @@ def run_internal(torch, log_t: int, kzg) -> dict:
     return out
 
 
+# The mesh phase: MESH_SHARDS shards on cuda:0, so the shards' kernels, the
+# cross-shard sums, the gather of their prefixes and kernel A's ladder all
+# run on the one card; the same code puts a shard on each of cuda:0..7.
+MESH_SHARDS = 4
+# The kernels each mesh prove must launch: the engines' and the outer
+# rounds' kernels on the shards, kernel B (the commitments, as on the
+# device path) on the mesh's first device.
+MESH_PATH = PROVE_PATH
+# The sharded sumcheck's size and factor count.
+MESH_SUMCHECK = (16, 3)
+# Each Fr and row-MSM kernel's library entry, timed by CUDA events on the
+# mesh proves.
+MESH_ENTRIES = {"fold": "zfr_fold", "product_evals": "zfr_product_evals",
+                "gruen_round": "zfr_gruen_round",
+                "row_plane_sums": "zg1_row_msm"}
+
+
+def mesh_sumcheck(torch, mesh) -> dict:
+    """sharded_sumcheck_prove of Σ_x Π_k f_k(x) over 2^16 entries, k = 3,
+    at tail 0 (the shards' rounds until each holds fewer than 2 entries),
+    against the single-device engine on the same tables and transcript:
+    round evals, challenges, finals and the transcript state equal."""
+    import numpy as np
+
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.field.params import FR
+    from zolt_tpu_torch.parallel import sharded_sumcheck_prove
+    from zolt_tpu_torch.parallel.stage_engine import DeviceProductTables
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+
+    log_n, k = MESH_SUMCHECK
+    rng = np.random.default_rng(log_n)
+    tables = [[int.from_bytes(rng.bytes(32), "little") % FR.p
+               for _ in range(1 << log_n)] for _ in range(k)]
+    tm = Blake2bTranscript(b"mesh")
+    ts = Blake2bTranscript(b"mesh")
+    os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        got = sharded_sumcheck_prove(mesh, tables, tm)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, _ = read_launches()
+        t0 = time.perf_counter()
+        eng = DeviceProductTables([limb.encode(t, device="cuda")
+                                   for t in tables], degree=k, device="cuda")
+        evs, rs = [], []
+        for _ in range(log_n):
+            e = eng.round_evals()
+            for v in e:
+                ts.append_scalar(v)
+            rs.append(ts.challenge_scalar())
+            eng.bind(rs[-1])
+            evs.append(e)
+        ref = (evs, rs, eng.finals())
+        single_s = time.perf_counter() - t0
+    finally:
+        del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+    if got != ref or tm.state != ts.state:
+        raise AssertionError("the sharded sumcheck differs from the "
+                             "single-device engine")
+    if not (launches["fold"] and launches[f"product_evals_k{k}"]):
+        raise AssertionError(f"the sharded sumcheck launched {launches}")
+    say("mesh", f"sharded_sumcheck_prove at 2^{log_n}, k = {k}: "
+                f"{secs:.3f} s (the single-device engine {single_s:.3f} s); "
+                f"round evals, challenges, finals and transcript equal to "
+                f"the single-device engine's; launches {launches}")
+    return {"seconds": secs, "single_seconds": single_s,
+            "launches": launches}
+
+
+def mesh_proves(torch, mesh, log_t: int, device_s: dict,
+                canonical: dict) -> dict:
+    """prove_jolt(elf, backend="mesh", mesh=mesh) of the sum-loop guest at
+    T = 2^log_t, tail 0, compat and sound: each timed beside the device
+    prove of phases 4-5 (`device_s`), its canonical bytes equal to that
+    prove's (`canonical`) and, at T = 2^16, its sha256 to the JAX digest;
+    its peak device memory, each kernel's launches, path bound and device
+    ms by CUDA events around each launch. Every kernel of MESH_PATH must
+    launch."""
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "sum_loop.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(log_t))
+        os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+        try:
+            for mode, sound, want in (("compat", False, JAX_DIGEST_T16),
+                                      ("sound", True, JAX_SOUND_DIGEST_T16)):
+                reset_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with contextlib.ExitStack() as st:
+                    ev = {k: st.enter_context(launch_events(torch, e))
+                          for k, e in MESH_ENTRIES.items()}
+                    blob, secs, stages, canon = timed_prove(
+                        torch, path, sound=sound, backend="mesh", mesh=mesh)
+                peak = torch.cuda.max_memory_allocated()
+                launches, work = read_launches()
+                digest = hashlib.sha256(blob).hexdigest()
+                if canon != canonical[mode]:
+                    raise AssertionError(f"the mesh {mode} proof differs "
+                                         f"from the device prove's")
+                if log_t == 16 and digest != want:
+                    raise AssertionError(f"the mesh {mode} proof sha256 "
+                                         f"{digest} != {want}")
+                idle = [k for k in MESH_PATH if launches[k] <= 0]
+                if idle:
+                    raise AssertionError(f"kernels not launched in the mesh "
+                                         f"{mode} prove: {idle}")
+                say("mesh", f"{mode} prove on the mesh, tail 0: {secs:.3f} s "
+                            f"(the device prove of this call "
+                            f"{device_s[mode]:.3f} s) {stages}; peak device "
+                            f"memory {peak} bytes ({peak / 2 ** 20:.1f} MiB); "
+                            f"bytes equal to the device prove's"
+                            + (f", sha256 {digest} equal to the JAX digest"
+                               if log_t == 16 else ""))
+                say("mesh", f"launches in the mesh {mode} prove: {launches}")
+                figs = path_figures(work, None, "mesh",
+                                    f"the mesh {mode} prove (device ms "
+                                    f"below, by CUDA events)")
+                # the product evals' CUDA events time both k's launches
+                # together, as path_figures' "device_ms_k2_k3" does
+                for name, fig in figs.items():
+                    kern, _, k = name.partition("_k")
+                    fig["device_ms_events" + ("_k2_k3" if k else "")] = (
+                        round(sum(ev[kern]), 4) if fig["launches"] else None)
+                say("mesh", f"device ms by CUDA events in the mesh {mode} "
+                            f"prove: " + ", ".join(
+                                f"{k} {round(sum(v), 4)} ({len(v)} launches)"
+                                for k, v in ev.items()))
+                out[mode] = {"seconds": secs, "device_seconds": device_s[mode],
+                             "stages": stages, "peak_bytes": peak,
+                             "launches": launches, "figures": figs}
+        finally:
+            del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+    return out
+
+
+def mesh_msm(torch, mesh, kzg) -> dict:
+    """msm_mesh at 2^16 points on the mesh, affine equal to the native C
+    MSM; kernels C, D and A launch. A's launches (the ladder summing the
+    shards' bucket arrays) timed by CUDA events beside their bound (the
+    work add_work counts on the ladder's own inputs), its first launch's
+    words equal to pt_add_plain's; C and D by CUDA events too."""
+    from zolt_tpu_torch.curve import device as dev
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.native import g1_msm_native
+
+    n = 1 << 16
+    pts, sc = msm_inputs(kzg, n, 16)
+    want = g1_msm_native(pts, sc)
+    caught = []
+    orig = dev.pt_add
+
+    def spy(pa, pb):
+        caught.append((pa, pb, orig(pa, pb)))
+        return caught[-1][2]
+
+    spy.counts = orig.counts
+    reset_launches()
+    dev.pt_add = spy
+    try:
+        with launch_events(torch, "zg1_add") as a_ev, \
+                launch_events(torch, "zg1_bucket_accumulate") as c_ev, \
+                launch_events(torch, "zg1_window_sums") as d_ev:
+            t0 = time.perf_counter()
+            got = pippenger.msm_mesh(mesh, pts, sc)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        dev.pt_add = orig
+    launches, _ = read_launches()
+    if got != want:
+        raise AssertionError("msm_mesh differs from the native C MSM")
+    idle = [k for k in ("g1_add_double", "bucket_accumulate", "window_sums")
+            if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by msm_mesh: {idle}")
+    pa, pb, first = caught[0]
+    err = max(max_abs(torch, a, b)
+              for a, b in zip(first, dev.pt_add_plain(pa, pb)))
+    if err:
+        raise AssertionError("kernel A's ladder add differs from "
+                             "pt_add_plain")
+    nbytes = imads = 0
+    for pa, pb, _ in caught:
+        w = dev.add_work(pa, pb)
+        nbytes, imads = nbytes + w[0], imads + w[1]
+    b_ms, b_by = bound(nbytes, imads)
+    a_ms = round(sum(a_ev), 4)
+    say("mesh", f"msm_mesh at 2^16 on {mesh.size} shards: {secs:.3f} s, "
+                f"affine equal to the native C MSM; launches {launches}; "
+                f"kernel A's {len(a_ev)} ladder launches {a_ev} ms by CUDA "
+                f"events, sum {a_ms} against its bound {b_ms:.4f} ms by "
+                f"{b_by} ({nbytes} bytes, {imads} IMADs; share "
+                f"{b_ms / a_ms * 100:.1f} %), its first launch's words equal "
+                f"to pt_add_plain's; C {round(sum(c_ev), 4)} ms in "
+                f"{len(c_ev)} launches, D {round(sum(d_ev), 4)} ms in "
+                f"{len(d_ev)}")
+    return {"seconds": secs, "launches": launches, "a_ms": a_ms,
+            "a_each_ms": a_ev, "a_bound_ms": b_ms, "a_bound_by": b_by,
+            "a_max_abs_err": err, "c_ms": round(sum(c_ev), 4),
+            "d_ms": round(sum(d_ev), 4)}
+
+
+def mesh_cli(torch) -> dict:
+    """The CLI's `prove --jolt-format --sound --backend mesh` and `--backend
+    host --stage1-backend mesh` at T = 2^CLI_LOG_T, tail 0, on make_mesh()
+    (every CUDA device: here a mesh of one card): each file's sha256 equal
+    to JAX_CLI_SOUND_DIGEST_T12; the first launches every kernel of
+    MESH_PATH, the second the Gruen round and no other."""
+    from zolt_tpu_torch.__main__ import main as cli_main
+
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        elf = os.path.join(td, f"sum_loop_t{CLI_LOG_T}.elf")
+        with open(elf, "wb") as f:
+            f.write(sum_loop_elf(CLI_LOG_T))
+        for name, flags in (("backend_mesh", ["--backend", "mesh"]),
+                            ("stage1_backend_mesh",
+                             ["--backend", "host", "--stage1-backend",
+                              "mesh"])):
+            f_out = os.path.join(td, f"{name}.bin")
+            os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                rc = cli_main(["prove", elf, "--jolt-format", "--sound",
+                               *flags, "-o", f_out])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches, _ = read_launches()
+            finally:
+                del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+            with open(f_out, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            if rc != 0 or digest != JAX_CLI_SOUND_DIGEST_T12:
+                raise AssertionError(f"the CLI's prove {flags}: exit {rc}, "
+                                     f"sha256 {digest} != "
+                                     f"{JAX_CLI_SOUND_DIGEST_T12}")
+            ran = {k for k, v in launches.items() if v}
+            want = (set(MESH_PATH) if name == "backend_mesh"
+                    else {"gruen_round"})
+            if not (want <= ran if name == "backend_mesh" else ran == want):
+                raise AssertionError(f"the CLI's prove {flags} launched "
+                                     f"{sorted(ran)}, not {sorted(want)}")
+            say("mesh", f"prove --jolt-format --sound {' '.join(flags)} on "
+                        f"make_mesh() (every CUDA device: "
+                        f"{torch.cuda.device_count()}), T = 2^{CLI_LOG_T}, "
+                        f"tail 0: {secs:.3f} s, sha256 equals the JAX CLI's; "
+                        f"launches {launches}")
+            out[name] = {"seconds": secs, "launches": launches}
+    return out
+
+
+def run_mesh(torch, log_t: int, device_s: dict, canonical: dict,
+             kzg) -> dict:
+    """Phase 12, mesh (see the module docstring)."""
+    from zolt_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(["cuda:0"] * MESH_SHARDS)
+    say("mesh", f"make_mesh(['cuda:0'] * {MESH_SHARDS}): {mesh.size} shards "
+                f"on {[str(d) for d in mesh.devices]}; "
+                f"torch.cuda.device_count() {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    out = {"sumcheck": mesh_sumcheck(torch, mesh),
+           **mesh_proves(torch, mesh, log_t, device_s, canonical),
+           "msm": mesh_msm(torch, mesh, kzg), "cli": mesh_cli(torch)}
+    out["seconds"] = time.perf_counter() - t0
+    say("mesh", f"the mesh phase took {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_json(stats: dict, launches: dict, path: dict,
                  sound_launches: dict, sound: dict, cli: dict, commits: dict,
-                 kzg: dict, legacy: dict, internal: dict) -> list:
+                 kzg: dict, legacy: dict, internal: dict, mesh: dict) -> list:
     """The kernels' entries of the JSON line. `launches` is the compat
-    prove's (the main path); each other path's launches and figures sit
-    beside it under its own prefix: sound_, cli_, batch_opening_, legacy_,
-    internal_ and opening_ (the internal prove with its batch opening)."""
+    prove's (the main path; kernel A's: msm_mesh's, its one path); each
+    other path's launches and figures sit beside it under its own prefix:
+    sound_, cli_, batch_opening_, legacy_, internal_, opening_ (the
+    internal prove with its batch opening) and mesh_ (the mesh phase's
+    proves, mesh_sound_, its sharded sumcheck, msm_mesh and CLI proves)."""
 
     def other_paths(name: str) -> dict:
         out = {}
@@ -2449,6 +2745,16 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                    opening_launches=internal["opening"]["launches"][name],
                    cli_container_launches={
                        c: v[name] for c, v in cli["containers"].items()})
+        for mode in ("compat", "sound"):
+            pre = "mesh" if mode == "compat" else "mesh_sound"
+            out[f"{pre}_launches"] = mesh[mode]["launches"][name]
+            out.update({f"{pre}_path_{k}": v for k, v in
+                        mesh[mode]["figures"].get(name, {}).items()
+                        if k.startswith(("bound_ms", "device_ms"))})
+        out.update(mesh_sumcheck_launches=mesh["sumcheck"]["launches"][name],
+                   mesh_msm_launches=mesh["msm"]["launches"][name],
+                   mesh_cli_launches={c: v["launches"][name]
+                                      for c, v in mesh["cli"].items()})
         return out
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2474,11 +2780,14 @@ def kernels_json(stats: dict, launches: dict, path: dict,
         on_prove = name in PROVE_PATH
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
                      launches=(launches[name] if on_prove else
-                               kzg["launches"][name]),
+                               kzg["launches"][name] if name in KZG_PATH
+                               else mesh["msm"]["launches"][name]),
                      path=("prove_jolt (compat, tail 0)" if on_prove else
                            "HyperKZG commit and open at 2^18"
                            if name in KZG_PATH else
-                           "none: its device functions serve B-D"),
+                           f"msm_mesh at 2^16 on {MESH_SHARDS} shards of "
+                           f"cuda:0: the ladder summing the shards' bucket "
+                           f"arrays"),
                      **{k: stats[name][k] for k in keys},
                      shape=stats[name]["shape"])
         if name in KZG_PATH:
@@ -2486,6 +2795,13 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                           kzg["figures"][name].items()
                           if k.startswith(("bound_ms", "device_ms",
                                            "kernel_launches"))})
+        if name == "g1_add_double":
+            m = mesh["msm"]
+            entry.update(path_device_ms_events=m["a_ms"],
+                         path_each_launch_ms=m["a_each_ms"],
+                         path_bound_ms=m["a_bound_ms"],
+                         path_bound_by=m["a_bound_by"],
+                         path_max_abs_err=m["a_max_abs_err"])
         if name == "bucket_accumulate":
             entry.update({f"{p}_shape": {k: stats[f"{name}_{p}"][k] for k in
                                          keys + ("shape",)}
@@ -2565,9 +2881,12 @@ def main() -> int:
     kzg = run_kzg(torch, kzg_srs)
     legacy = run_legacy(torch, args.log_t)
     internal = run_internal(torch, args.log_t, kzg_srs)
+    mesh = run_mesh(torch, args.log_t,
+                    {"compat": path["seconds"], "sound": sound["seconds"]},
+                    {"compat": compat_proof, "sound": sound_proof}, kzg_srs)
 
     kernels = kernels_json(stats, launches, path, sound_launches, sound, cli,
-                           commits, kzg, legacy, internal)
+                           commits, kzg, legacy, internal, mesh)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

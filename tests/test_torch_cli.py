@@ -12,17 +12,19 @@ with --json, --gzip and --log-k, each with --backend host, byte-equal to
 JAX's files (JAX's legacy prover with its jitted helpers on its host
 tier, as tests/test_torch_legacy.py runs it), and `verify` (--strict
 too) and `stats` of each, a flipped stage-1 byte of each, and a
-Jolt-format file without --elf, with JAX's lines. What is not ported
-(the mesh backends, `bench`) must exit 2 with a message naming it, and
-the default backend must raise without a CUDA device. Pins: the digests
-chip_smoke.py holds its CLI proves at T = 2^12 to (JAX's CLI on the host
-tier), the golden-array guest with the joint Dory proof on the device
-path (device="cpu"), and `stages=3` and `stages=5` on the host tier,
-each byte-equal to JAX's.
+Jolt-format file without --elf, with JAX's lines. `prove --backend mesh`
+and `--stage1-backend mesh` (make_mesh() on "cpu" shards) write the JAX
+CLI's host-tier file. `bench` (not ported) and --backend mesh for the
+internal and legacy provers (no mesh path) must exit 2 with a message
+naming them, and the default backend must raise without a CUDA device.
+Pins: the digests chip_smoke.py holds its CLI proves at T = 2^12 to
+(JAX's CLI on the host tier), the golden-array guest with the joint Dory
+proof on the device path (device="cpu"), and `stages=3` and `stages=5`
+on the host tier, each byte-equal to JAX's.
 
-About 60 s in one process on an 8-core CPU box (the T = 2^12 digests
+About 90 s in one process on an 8-core CPU box (the T = 2^12 digests
 about 8 s each, each T = 2^10 sound prove about 3 s, each sound verify
-about 3 s).
+about 3 s; the mesh CLI proves 24 s and 6 s).
 """
 
 import contextlib
@@ -151,23 +153,48 @@ def _fake(tmp_path, name: str, blob: bytes) -> str:
 
 
 REFUSALS = {
-    "backend_mesh": (["prove", "{elf}", "--jolt-format", "--backend",
-                      "mesh"], "mesh"),
-    "stage1_backend_mesh": (["prove", "{elf}", "--jolt-format", "--backend",
-                             "host", "--stage1-backend", "mesh"], "mesh"),
-    "internal_mesh": (["prove", "{elf}", "--backend", "mesh"], "mesh"),
+    "internal_mesh": (["prove", "{elf}", "--backend", "mesh"],
+                      ("no mesh path", "internal")),
     "legacy_mesh": (["prove", "{elf}", "--legacy", "--backend", "mesh"],
-                    "mesh"),
-    "bench": (["bench"], "bench"),
+                    ("no mesh path", "legacy")),
+    "bench": (["bench"], ("not ported yet", "bench")),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_what_is_not_ported_is_refused(proved, capsys, case):
-    argv, what = REFUSALS[case]
+    argv, words = REFUSALS[case]
     assert main([a.format(elf=proved["elf"]) for a in argv]) == 2
     err = capsys.readouterr().err
-    assert "not ported yet" in err and what in err, err
+    assert all(w in err for w in words), err
+
+
+MESH_PROVES = {
+    "backend_mesh": ["--backend", "mesh"],
+    "stage1_backend_mesh": ["--backend", "host", "--stage1-backend", "mesh"],
+}
+
+
+@pytest.mark.parametrize("case", list(MESH_PROVES))
+def test_mesh_prove_writes_jax_files(proved, tmp_path, monkeypatch, case):
+    """`prove --jolt-format --sound --gzip` on a mesh (make_mesh() on two
+    "cpu" shards here, every CUDA device by default) writes the JAX CLI's
+    host-tier file. At the port's default tail (8192) the batch opening's
+    2^14-entry groups take their first round on the mesh; stage 1 runs
+    every round there at tail 0."""
+    from zolt_tpu_torch.parallel import mesh as pm
+
+    make = pm.make_mesh
+    monkeypatch.setattr(pm, "make_mesh", lambda: make(["cpu"] * 2))
+    monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL",
+                       "8192" if case == "backend_mesh" else "0")
+    out = str(tmp_path / "p.bin")
+    rc, text = _run(main, ["prove", proved["elf"], "--jolt-format",
+                           "--sound", *MESH_PROVES[case], "-o", out,
+                           "--gzip"])
+    assert rc == 0, text
+    with open(out, "rb") as f:
+        assert f.read() == proved["jax"]["out"]
 
 
 @pytest.mark.parametrize("flags", [["--jolt-format", "--sound"], [],

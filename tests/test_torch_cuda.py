@@ -590,3 +590,77 @@ def test_product_sumcheck_on_cuda(gen, k):
                        Blake2bTranscript(b"s"), claim)
     assert (got.compressed_polys, got.challenges, got.final_claim) == \
         (ref.compressed_polys, ref.challenges, ref.final_claim)
+
+
+# ---------------------------------------------------------------------------
+# The mesh: four shards on one card
+# ---------------------------------------------------------------------------
+
+def test_mesh_engines_on_four_shards_of_one_card(gen, monkeypatch):
+    """DeviceProductTables(mesh=) and DeviceOuterRounds(mesh=) on make_mesh(
+    ["cuda:0"] * 4) against the same engines on "cpu" (the plain
+    versions), every round at tail 0, through the hand-off to the host;
+    the fold, product-evals and Gruen kernels launch; four shards of one
+    card take one grouped launch a round."""
+    from zolt_tpu_torch.parallel import make_mesh, stage_engine as se
+    from zolt_tpu_torch.poly.special import GruenSplitEq
+    from zolt_tpu_torch.zkvm import device_outer as do
+
+    monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "0")
+    mesh = make_mesh(["cuda:0"] * 4)
+    n = 1 << 12
+    rs = [int(v) for v in np.random.default_rng(4).integers(1, 1 << 62, 12)]
+    t = _tables(gen, 3, n, n)
+    eng = se.DeviceProductTables([t[0], t[1]], [t[2]], degree=2, mesh=mesh)
+    ref = se.DeviceProductTables([t[0].cpu(), t[1].cpu()], [t[2].cpu()],
+                                 degree=2, device="cpu")
+    before = (fold.fold_many.counts["launches"],
+              evals.product_evals.counts["launches"])
+    for r in rs:
+        assert eng.round_evals() == ref.round_evals()
+        eng.bind(r)
+        ref.bind(r)
+    assert eng.finals() == ref.finals()
+    # 4 shards a launch: 10 rounds on the card (live 2^12 down to 2^3, a
+    # shard's 2 entries), 9 folds there and the pending one flushed at
+    # the hand-off
+    assert (fold.fold_many.counts["launches"] - before[0],
+            evals.product_evals.counts["launches"] - before[1]) == (10, 10)
+
+    se_c, se_r = GruenSplitEq(rs, 5), GruenSplitEq(rs, 5)
+    ab = _tables(gen, 2, n, n)
+    g0 = gruen.gruen_round.counts["launches"]
+    outer = do.DeviceOuterRounds(ab[0], ab[1], se=se_c, mesh=mesh)
+    plain = do.DeviceOuterRounds(ab[0].cpu(), ab[1].cpu(), se=se_r,
+                                 device="cpu")
+    for r in rs:
+        assert outer.round_evals() == plain.round_evals()
+        outer.bind(r)
+        plain.bind(r)
+        se_c.bind(r)
+        se_r.bind(r)
+    assert outer.final_values() == plain.final_values()
+    assert gruen.gruen_round.counts["launches"] > g0
+
+
+def test_msm_mesh_on_four_shards_of_one_card(gen):
+    """msm_mesh at 2^12 points on make_mesh(["cuda:0"] * 4) against the
+    native C MSM (affine); kernel C launches once a shard a pass, kernel A
+    three times a pass, kernel D once a pass."""
+    from chip_smoke import msm_inputs
+    from zolt_tpu_torch.curve import device as dev
+    from zolt_tpu_torch.msm import pippenger
+    from zolt_tpu_torch.native import g1_msm_native
+    from zolt_tpu_torch.parallel import make_mesh
+    from zolt_tpu_torch.pcs import srs as srs_mod
+
+    n = 1 << 12
+    pts, sc = msm_inputs(srs_mod.insecure_setup(n), n, n)
+    c = (pippenger.bucket_sums.counts["launches"],
+         dev.pt_add.counts["launches"],
+         pippenger.window_sums.counts["launches"])
+    got = pippenger.msm_mesh(make_mesh(["cuda:0"] * 4), pts, sc)
+    assert got == g1_msm_native(pts, sc)
+    assert (pippenger.bucket_sums.counts["launches"] - c[0],
+            dev.pt_add.counts["launches"] - c[1],
+            pippenger.window_sums.counts["launches"] - c[2]) == (16, 12, 4)

@@ -61,19 +61,17 @@ def test_device_prove_matches_jax_bytes(tmp_path, monkeypatch, guest):
 
 def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Every option prove_jolt does not honour raises; stage1_backend is
-    honoured on either backend (stage 1's remaining rounds on the tier it
-    names, the JAX package's bytes), never ignored."""
+    honoured on every backend (stage 1's remaining rounds on the tier it
+    names, the JAX package's bytes), never ignored. The mesh, once refused
+    here, proves on a mesh of two "cpu" shards (tests/test_torch_mesh.py
+    holds it to JAX at more sizes)."""
+    from zolt_tpu_torch.parallel import make_mesh
     from zolt_tpu_torch.zkvm import streaming_outer
 
     path = str(tmp_path / "g.elf")
     with open(path, "wb") as f:
         f.write(_golden_array_elf())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        prove_jolt(path, backend="mesh", device="cpu")
-    for backend in ("device", "host"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            prove_jolt(path, backend=backend, device="cpu",
-                       stage1_backend="mesh")
+    for backend in ("device", "host", "mesh"):
         with pytest.raises(ValueError, match="stage1_backend"):
             prove_jolt(path, backend=backend, device="cpu",
                        stage1_backend="gpu")
@@ -82,7 +80,7 @@ def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="explicit device"):
         prove_jolt(path, backend="host", device=None, stage1_backend="device")
     for backend in ("gpu", None):
-        with pytest.raises(ValueError, match="'device' or 'host'"):
+        with pytest.raises(ValueError, match="'device', 'host' or 'mesh'"):
             prove_jolt(path, backend=backend)
     # the tier each stage-1 prover was built for
     tiers = []
@@ -95,13 +93,16 @@ def test_prove_jolt_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(streaming_outer.StreamingOuterProver, "__init__", spy)
     monkeypatch.setenv("ZOLT_TPU_DEVICE_TAIL", "0")
     ref = jax_prove_jolt(path).conv.proof.serialize_with_dory()
-    for backend, s1 in (("host", "device"), ("device", "host")):
+    mesh = make_mesh(["cpu"] * 2)
+    for backend, s1 in (("host", "device"), ("device", "host"),
+                        ("mesh", None), ("device", "mesh"),
+                        ("host", "mesh")):
         tiers.clear()
         got = prove_jolt(path, backend=backend, device="cpu",
-                         stage1_backend=s1)
+                         stage1_backend=s1, mesh=mesh)
         assert got.conv.proof.serialize_with_dory() == ref
         # the first prover runs the UniSkip round, the second the rest
-        assert tiers[-1] == s1
+        assert tiers[-1] == (s1 or backend)
     # the default is the GPU, and without one it raises: no fallback, in
     # either mode
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)

@@ -9,8 +9,8 @@ The command surface of the JAX package's CLI, on the port:
                                    [--jolt-format [--sound]
                                     [--export-preprocessing PATH]
                                     [--device-out PATH] [--timings]
-                                    [--stage1-backend device|host]]
-                                   [--backend device|host]
+                                    [--stage1-backend device|host|mesh]]
+                                   [--backend device|host|mesh]
     python -m zolt_tpu_torch verify <proof> [--elf <elf>] [--inputs HEX]
                                     [--outputs HEX] [--panic]
                                     [--device PATH] [--reference-compat]
@@ -26,8 +26,10 @@ container (zkvm/prover.py; JSON with --json; log_k from --log-k, default
 on the GPU unless asked otherwise: --backend defaults to "device"
 (device="cuda"), which raises without a CUDA device; --backend host is the
 host C tier for the Jolt format, and the kernels' plain torch versions on
-the CPU (device="cpu") for the other two. --stage1-backend (Jolt format only) defaults to the value of
---backend. The proof bytes are the same on every tier. `verify` and
+the CPU (device="cpu") for the other two. --backend mesh (Jolt format
+only) shards the wide rounds over every CUDA device (parallel/mesh.py
+make_mesh()). --stage1-backend (Jolt format only) defaults to the value
+of --backend. The proof bytes are the same on every tier. `verify` and
 `stats` take any of the containers, gzipped or not, routed as the JAX
 package's CLI routes them.
 
@@ -37,8 +39,9 @@ clobbers the serialized RAF claim); --strict is accepted and does nothing.
 --device pins the Fiat-Shamir preamble to a JoltDevice file written at
 prove time with --device-out.
 
-Not ported yet, and refused with exit code 2 and a message naming it: the
-mesh backends and `bench`.
+Refused with exit code 2 and a message naming it: `bench` (not ported
+yet), and --backend mesh for the internal and legacy provers, which have
+no mesh path (the JAX package's take no backend).
 """
 
 from __future__ import annotations
@@ -71,8 +74,10 @@ def _device(args):
     --backend device, "cpu" (the kernels' plain torch versions) for
     host."""
     if args.backend == "mesh":
-        raise NotImplementedError("backend='mesh' is not ported yet (ROADMAP "
-                                  "Queue 1 item 6)")
+        raise NotImplementedError(
+            f"the {'legacy' if args.legacy else 'internal'} prover has no "
+            f"mesh path (the JAX package's takes no backend); --backend mesh "
+            f"is for --jolt-format")
     return "cuda" if args.backend == "device" else "cpu"
 
 
@@ -159,6 +164,7 @@ def cmd_prove(args) -> int:
     from .zkvm.pipeline import prove_jolt
 
     t0 = time.time()
+    # a mesh backend runs on make_mesh(): every CUDA device
     res = prove_jolt(args.elf, with_joint_proof=True, sound=args.sound,
                      stage1_backend=args.stage1_backend, backend=args.backend)
     t1 = time.time()
@@ -455,7 +461,8 @@ def main(argv=None) -> int:
                     "the MSMs on the CUDA device, which must be present; "
                     "host: the host C tier (Jolt format) or the kernels' plain "
                     "torch versions on the CPU (the internal and legacy "
-                    "provers); mesh: not ported yet")
+                    "provers); mesh: the Jolt format's wide rounds sharded "
+                    "over every CUDA device")
     pp.add_argument("--stage1-backend", choices=("device", "host", "mesh"),
                     default=None,
                     help="where stage 1's remaining rounds run (default: as "

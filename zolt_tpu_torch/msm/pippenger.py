@@ -32,8 +32,11 @@ size once a device is given: work asked of a device never moves to the
 host. With no device (Dory's callers) it stays on the host tiers: the
 double-and-add below HOST_MAX points, else the native C MSM. `srs_msm`
 takes a KZG SRS's affine table from a cache instead of building it a
-call (HyperKZG). `msm_mesh` (points sharded across GPUs) waits for the
-multi-GPU slice.
+call (HyperKZG). `msm_mesh` shards the points over a mesh
+(parallel/mesh.py): each shard's bucket sums by kernel C on its device,
+the shards' bucket arrays summed on the mesh's first device by kernel A
+(`curve/device.pt_add`, a ladder of n_dev − 1 launches), then kernel D
+and the host combine.
 """
 
 from __future__ import annotations
@@ -354,11 +357,53 @@ def msm_digits(pts: torch.Tensor, valid: torch.Tensor,
                          f"points")
     ent, seg = bucket_plan(digits)
     W = window_sums(*bucket_sums(ent, seg, pts, valid))
+    return _combine(dev.to_affine_host(W))
+
+
+def _combine(window_totals: list):
+    """Σ_w 2^(8w)·W_w on the host (tiny, exact) -> affine point or None."""
     total = None
-    for w, pt in enumerate(dev.to_affine_host(W)):
+    for w, pt in enumerate(window_totals):
         if pt is not None:
             total = chost.add(total, chost.scalar_mul(pt, 1 << (WINDOW_BITS * w)))
     return total
+
+
+def msm_mesh(mesh, points: list, scalars: list[int],
+             windows_per_pass: int = 8):
+    """Σ s_i · P_i with the points sharded over a mesh -> host affine point
+    (the port of zolt_tpu/msm/pippenger.py msm_mesh). The points are padded
+    with identities to a multiple of n_dev, and shard s takes points
+    [s·n/n_dev, (s+1)·n/n_dev) for every window. A pass of
+    `windows_per_pass` windows: each shard's bucket plan and bucket sums
+    (kernel C) on its device; the shards' (windows·256)-point bucket arrays
+    moved to mesh.devices[0] and summed there by a ladder of n_dev − 1
+    kernel A launches (Jacobian addition is not an integer sum, so this is
+    the EC counterpart of a psum); kernel D's window sums. Jacobian words
+    depend on the order of the adds, their points do not: compare results
+    in affine form."""
+    n = len(points)
+    if n != len(scalars) or n == 0:
+        raise ValueError(f"msm of {n} points and {len(scalars)} scalars")
+    pad = (-n) % mesh.size
+    pts, valid = affine_table(list(points) + [None] * pad)
+    digits = int_digits(list(scalars) + [0] * pad, "cpu")
+    loc = (n + pad) // mesh.size
+    shards = [(pts[s * loc:(s + 1) * loc].to(d, copy=True),
+               valid[s * loc:(s + 1) * loc].to(d, copy=True),
+               digits[s * loc:(s + 1) * loc].to(d, copy=True))
+              for s, d in enumerate(mesh.devices)]
+    dev0 = mesh.devices[0]
+    totals: list = []
+    for w0 in range(0, N_WINDOWS, windows_per_pass):
+        wn = min(windows_per_pass, N_WINDOWS - w0)
+        acc = None
+        for p_s, v_s, d_s in shards:
+            ent, seg = bucket_plan(d_s[:, w0:w0 + wn].contiguous())
+            b = tuple(c.to(dev0) for c in bucket_sums(ent, seg, p_s, v_s))
+            acc = b if acc is None else dev.pt_add(acc, b)
+        totals.extend(dev.to_affine_host(window_sums(*acc)))
+    return _combine(totals)
 
 
 _TABLES: dict = {}

@@ -1,4 +1,4 @@
-"""Single-device engine for dense product-sumcheck instances (torch).
+"""Device and mesh engine for dense product-sumcheck instances (torch).
 
 Most of the Jolt schedule's instances reduce per round to the same two
 primitives over k dense tables (ValEvaluation: inc·wa·lt deg-3; ValFinal:
@@ -8,17 +8,22 @@ Gruen instances factor their eq weight separately — see zkvm/device_outer):
     evals[t] = Σ_i Π_k (lo_k[i] + t·(hi_k[i] − lo_k[i]))   t = 0..degree
     fold:      tab_k[i] ← lo_k[i] + r·(hi_k[i] − lo_k[i])
 
-The port of zolt_tpu/parallel/stage_engine.py for one device. An engine's
-tables are one (k, live, 8) int32 stack of Montgomery words holding the
-live prefix only: each fold writes a new stack of half the length (the
-JAX engine's fixed size behind a zero tail is XLA's static shapes). Binds
+The port of zolt_tpu/parallel/stage_engine.py. An engine's tables are one
+(k, live, 8) int32 stack of Montgomery words holding the live prefix only:
+each fold writes a new stack of half the length (the JAX engine's fixed
+size behind a zero tail is XLA's static shapes). On a mesh
+(parallel/mesh.py) the stack is n_dev contiguous shards, each on its own
+device and holding its part of the live prefix; a shard is a group of the
+grouped launches below, the shards' evals are summed across the mesh, and
+the rounds move to the host once a shard holds fewer than 2 live entries.
+Binds
 are deferred: bind(r) launches nothing and records r; the pending fold
 runs when the engine's evals are next asked for, all of a round's engines
-in one grouped launch of kernel 1 (field/fold.py) per 16 engines,
-followed by one grouped launch of kernels 2-3 (field/evals.py) per 16 for
-their evals (round_evals_many). Whatever reads the tables (finals, the
-host handoff) flushes a pending fold first; flush_many flushes several
-engines the same way. Once the live prefix is at most `tail_n()` entries
+in one grouped launch of kernel 1 (field/fold.py) per 16 shards on each
+device, followed by one grouped launch of kernels 2-3 (field/evals.py)
+per 16 for their evals (round_evals_many). Whatever reads the tables
+(finals, the host handoff) flushes a pending fold first; flush_many
+flushes several engines the same way. Once the live prefix is at most `tail_n()` entries
 the remaining rounds move to the host FrVec tier.
 
 "Passenger" tables ride along in the fold (no eval contribution) so that
@@ -37,9 +42,9 @@ import os
 import torch
 
 from ..field import limb
-from ..field.evals import product_evals
-from ..field.fold import fold_many
 from ..field.params import FR
+from .mesh import (_psum_field, evals_by_device, folds_by_device,
+                   gather_shards, resolve_device, shard_table)
 
 
 P = FR.p
@@ -64,7 +69,8 @@ def drain_futures(futures: list) -> list:
     live = [a for a in futures if a is not None]
     if not live:
         return [None] * len(futures)
-    big = torch.cat([a.reshape(-1, 8) for a in live]).to("cpu")
+    big = torch.cat([a.reshape(-1, 8).to(live[0].device)
+                     for a in live]).to("cpu")
     out, off = [], 0
     for a in futures:
         if a is None:
@@ -78,22 +84,29 @@ def drain_futures(futures: list) -> list:
 
 def flush_many(engines) -> None:
     """Run the pending folds of these DeviceProductTables (None entries
-    skipped) in grouped launches of kernel 1, 16 engines a launch; each
-    launch's engines drop their old stacks before the next launch
-    allocates, so the fold's out-of-place copies stay one launch wide."""
+    skipped) in grouped launches of kernel 1, a shard a group, 16 groups a
+    launch on each device; each launch's engines drop their old shards
+    before the next launch allocates, so the fold's out-of-place copies
+    stay one launch wide."""
     pend = [e for e in engines if e is not None and e._pending is not None]
+    slots = [(e, s) for e in pend for s in range(e.n_dev)]
+    groups = [(e.shards[s], e._pending, e.live // e.n_dev) for e, s in slots]
+    for e in pend:
+        e._pending = None
 
-    def done(i, tabs):
-        pend[i].tables, pend[i]._pending = tabs, None
+    def done(i, tab):
+        e, s = slots[i]
+        e.shards[s] = tab
 
-    fold_many(((e.tables, e._pending, e.live) for e in pend), done)
+    folds_by_device(groups, done)
 
 
 def round_evals_many(engines) -> list:
     """The (degree+1, 8) device evals of several DeviceProductTables'
     current round: their pending folds in grouped launches of kernel 1,
-    then their evals in grouped launches of kernels 2-3, 16 engines a
-    launch (no host sync).
+    then their evals in grouped launches of kernels 2-3, a shard a group
+    and 16 groups a launch on each device (no host sync); a mesh engine's
+    shard evals summed on its first device (mesh._psum_field).
     A None entry, or an engine whose narrow tail has moved to the host,
     gets None: callers take its round_evals. Download the futures with
     drain_futures."""
@@ -106,22 +119,13 @@ def round_evals_many(engines) -> list:
             e._to_host()
         if e._host is None:
             on_dev.append(e)
-    evs = iter(product_evals([(e.tables[: e.k], e.live // 2, e.degree)
-                              for e in on_dev]))
+    parts = iter(evals_by_device([(t[: e.k], e.live // e.n_dev // 2,
+                                   e.degree)
+                                  for e in on_dev for t in e.shards]))
+    evs = iter([_psum_field([next(parts) for _ in e.shards])
+                for e in on_dev])
     return [next(evs) if e is not None and e._host is None else None
             for e in engines]
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device with the CUDA index filled in ("cuda" -> "cuda:0"), so
-    it compares equal to a tensor's device. The device is never guessed:
-    None raises."""
-    if device is None:
-        raise ValueError("the device engines need an explicit device=")
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
 
 
 def as_words(v, device: torch.device) -> torch.Tensor:
@@ -135,14 +139,17 @@ def as_words(v, device: torch.device) -> torch.Tensor:
 
 
 class DeviceProductTables:
-    """k product tables + passengers on one device; see module doc.
+    """k product tables + passengers on one device or a mesh; see module
+    doc.
 
     n_factors tables contribute to the evals; the rest only fold. The live
     prefix is tracked host-side: `live` counts the entries after every
-    bind, a pending one included."""
+    bind, a pending one included. `shards` holds the stack: on one device
+    one (k, live, 8) tensor; on a mesh of n_dev shards, shard s the live
+    entries [s·live/n_dev, (s+1)·live/n_dev) on mesh.devices[s]."""
 
     def __init__(self, factor_vecs, passenger_vecs=(), degree=None,
-                 device=None):
+                 device=None, mesh=None):
         self.k = len(factor_vecs)
         self.degree = degree if degree is not None else self.k
         all_vecs = list(factor_vecs) + list(passenger_vecs)
@@ -152,27 +159,54 @@ class DeviceProductTables:
 
         self.n = _n(all_vecs[0])
         assert all(_n(v) == self.n for v in all_vecs)
+        if mesh is not None:
+            # the mesh's devices replace `device`. A table that cannot give
+            # every shard an even pair count (e.g. ValFinal at small trace
+            # lengths) runs unsharded on the mesh's first device.
+            device = mesh.devices[0]
+            if self.n % (2 * mesh.size):
+                mesh = None
+        self.mesh = mesh
+        self.n_dev = mesh.size if mesh is not None else 1
         self.device = resolve_device(device)
         self.live = self.n
         # torch.stack copies: the engine never aliases an FrVec buffer
-        self.tables = torch.stack([as_words(v, self.device)
-                                   for v in all_vecs])
+        stack = torch.stack([as_words(v, self.device) for v in all_vecs])
+        self.shards = shard_table(mesh, stack) if mesh is not None \
+            else [stack]
         self._pending: int | None = None     # a bound r not yet folded
         self._host: list | None = None
 
+    @property
+    def tables(self) -> torch.Tensor | None:
+        """The (k, live, 8) stack of the live entries (with a bind pending,
+        the stack before its fold); on a mesh the shards' entries in
+        order, gathered on its first device. None once on the host."""
+        if self.shards is None:
+            return None
+        if self.n_dev == 1:
+            return self.shards[0]
+        return gather_shards(self.shards, self.device)
+
     # -- host tail ----------------------------------------------------------
     def _needs_tail(self) -> bool:
-        return self._host is None and self.live <= tail_n()
+        if self._host is not None:
+            return False
+        if self.live <= tail_n():
+            return True
+        return self.mesh is not None and self.live // self.n_dev < 2
 
     def _to_host(self) -> None:
         """Move the live prefixes to host FrVecs for the narrow-tail rounds
-        (only the live prefix crosses to the host)."""
+        (only the live prefix crosses to the host): a pending fold runs
+        first, on every shard, then the shards' entries are gathered in
+        shard order."""
         if self._host is not None:
             return
         flush_many([self])
-        arr = self.tables.to("cpu")               # the live prefix
+        arr = gather_shards(self.shards, "cpu")
         self._host = [limb.words_to_frvec(arr[j]) for j in range(arr.shape[0])]
-        self.tables = None
+        self.shards = None
 
     # -- protocol ------------------------------------------------------------
     def round_evals_device(self):
@@ -214,4 +248,4 @@ class DeviceProductTables:
         if self._host is not None:
             return [v.first() for v in self._host]
         flush_many([self])
-        return limb.decode(self.tables[:, 0])
+        return limb.decode(self.shards[0][:, 0])

@@ -157,7 +157,7 @@ def _bitrev_words(v: FrVec, nv: int, device) -> torch.Tensor:
 
 def prove_batch_opening(transcript, claims: list[BatchClaim], srs: dory.DorySRS,
                         num_vars: int, backend: str | None = None,
-                        device=None) -> BatchOpeningProof:
+                        device=None, mesh=None) -> BatchOpeningProof:
     """Run the reduction + joint Dory opening. `num_vars` must be even and
     ≥ every claim's point length; srs must cover num_vars.
 
@@ -185,7 +185,9 @@ def prove_batch_opening(transcript, claims: list[BatchClaim], srs: dory.DorySRS,
     launch and one grouped product-evals launch per 16 groups) with one
     download. Narrow tails hand back to the host FrVec tier inside the
     engine. Groups at or below the tail threshold stay on the host from
-    the start."""
+    the start. backend="mesh" shards each device group's tables over
+    `mesh` (its first device is `device`'s place); a group too small to
+    give every shard an even pair count runs unsharded there."""
     assert num_vars % 2 == 0, "pad to an even num_vars (square Dory layout)"
     n_tab = 1 << num_vars
     proof = BatchOpeningProof()
@@ -238,7 +240,11 @@ def prove_batch_opening(transcript, claims: list[BatchClaim], srs: dory.DorySRS,
     g_e: list[FrVec | None] = [None] * n_groups
     g_cow = [False] * n_groups  # f-table shared with the caller: first fold
                                 #   must write a fresh buffer
-    use_dev = backend == "device"
+    use_dev = backend in ("device", "mesh")
+    if backend == "mesh":
+        device = mesh.devices[0]
+    else:
+        mesh = None
     g_eng: dict[int, object] = {}   # group -> DeviceProductTables
     g_fin: dict[int, int] = {}      # device groups' fully-bound f(r*)
 
@@ -292,7 +298,8 @@ def prove_batch_opening(transcript, claims: list[BatchClaim], srs: dory.DorySRS,
             # the merged eq was built from REVERSED points, which IS the
             # bit-reversed eq table (eq factors per bit commute)
             g_eng[g] = stage_engine.DeviceProductTables(
-                [_bitrev_words(fv, n_i, device), et], degree=2, device=device)
+                [_bitrev_words(fv, n_i, device), et], degree=2, device=device,
+                mesh=mesh)
             g_f[g] = fv      # "active" marker; the engine owns the state
             g_e[g] = None
             return

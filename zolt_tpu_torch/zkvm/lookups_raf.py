@@ -791,6 +791,36 @@ def _eval3(compressed3: list[int], hint: int, x: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Slow differential oracle (tests): per-round generic closed-form evaluation
+# ---------------------------------------------------------------------------
+
+def slow_phase_a_round_evals(entries, gammas, eqv, r_bound, pos, claim):
+    """Phase A's round evals (e0, e2) at address bit `pos`, summed entry by
+    entry from the closed form: each entry's eq weight times the χ of its
+    index bits bound so far (`r_bound`: bit -> challenge), times its
+    lookup polynomial at the mixed point (bound bits at their challenges,
+    bit `pos` at c = 0 or 2, the rest at the index's bits). `claim` is
+    unused, as in the JAX package's oracle."""
+    e0 = e2 = 0
+    for (j, idx, spec) in entries:
+        pref = 1
+        for p, rr in r_bound.items():
+            b = (idx >> p) & 1
+            pref = pref * (rr if b else (1 - rr)) % P
+        wt = eqv[j] * pref % P
+        bit = (idx >> pos) & 1
+        for c in (0, 2):
+            pt = _mixed_point(r_bound, idx, pos, c)
+            val = gm_eval_point(spec, gammas, pt)
+            chi = (1 - bit) if c == 0 else (2 if bit else -1)
+            if c == 0:
+                e0 += wt * chi % P * val
+            else:
+                e2 += wt * chi % P * val
+    return e0 % P, e2 % P
+
+
+# ---------------------------------------------------------------------------
 # Stage-8 verifier
 # ---------------------------------------------------------------------------
 

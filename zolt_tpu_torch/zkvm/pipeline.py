@@ -52,26 +52,28 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     1-4 and the row MSMs of the small-scalar committed polys as torch
     tensors on `device`: "cuda" (the default) launches the hand-written
     kernels of zolt_tpu_torch/csrc and raises where there is no CUDA
-    device, "cpu" runs their plain torch versions. backend="host" keeps
-    every round and commitment on the host C tier. All give the same
-    bytes.
+    device, "cpu" runs their plain torch versions. backend="mesh" shards
+    those rounds over `mesh` (parallel/mesh.py; None: make_mesh(), every
+    CUDA device), `device` ignored: the engines' tables split into one
+    contiguous shard a mesh device, and the commitments, whose JAX
+    counterpart takes no mesh, run as on backend="device" on the mesh's
+    first device. backend="host" keeps every round and commitment on the
+    host C tier. All give the same bytes.
 
     stage1_backend (None: as `backend`) runs stage 1's remaining rounds
     on "device" (on `device`, as the JAX package's stage1_backend="device"
-    does) or on "host", whatever the other stages use.
+    does), "mesh" (on `mesh`) or "host", whatever the other stages use.
 
     sound=True proves the real stages 5-12 in place of the reference's
     zero stages and binds every committed claim with one PCS batch opening
-    (pcs/batch.py), whose reduction sumcheck runs on `device` too."""
-    if "mesh" in (backend, stage1_backend) or mesh is not None:
-        raise NotImplementedError(
-            "backend='mesh' and stage1_backend='mesh' are not ported yet "
-            "(ROADMAP Queue 1 item 6)")
-    if backend not in ("device", "host"):
-        raise ValueError(f"backend {backend!r}: 'device' or 'host'")
-    if stage1_backend not in (None, "device", "host"):
+    (pcs/batch.py), whose reduction sumcheck runs on the stages' device or
+    mesh too."""
+    tiers = ("device", "host", "mesh")
+    if backend not in tiers:
+        raise ValueError(f"backend {backend!r}: 'device', 'host' or 'mesh'")
+    if stage1_backend not in (None,) + tiers:
         raise ValueError(f"stage1_backend {stage1_backend!r}: 'device', "
-                         f"'host' or None")
+                         f"'host', 'mesh' or None")
     stage1_backend = stage1_backend or backend
     if "device" in (backend, stage1_backend):
         if device is None:
@@ -81,10 +83,20 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
             raise RuntimeError("prove_jolt runs on the GPU by default and "
                                "there is no CUDA device; pass device='cpu' "
                                "or backend='host'")
-    # stage 1 takes `device` whenever it runs there; the commitments and
-    # the batch opening only with backend="device"
-    stage1_device = device if "device" in (backend, stage1_backend) else None
-    stage_device = device if backend == "device" else None
+    else:
+        device = None
+    if "mesh" in (backend, stage1_backend):
+        if mesh is None:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh()
+    else:
+        mesh = None
+    # the commitments and the batch opening run on the stages' device: the
+    # mesh's first one on backend="mesh"
+    stage_device = {"device": device,
+                    "mesh": mesh.devices[0] if mesh is not None else None,
+                    "host": None}[backend]
     if backend == "host":
         backend = None                  # the stages' spelling of the host tier
     # sound mode traces div-family instructions as virtual sequences
@@ -148,8 +160,8 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
     conv = convert_with_transcript(padded, tau, transcript, emulator=emu,
                                    log_ram_k=LOG_RAM_K, stages=stages, sound=sound,
                                    stage1_backend=stage1_backend,
-                                   device=stage1_device, bc_index=bc_index,
-                                   backend=backend)
+                                   device=device, mesh=mesh,
+                                   bc_index=bc_index, backend=backend)
 
     proof = conv.proof
     proof.commitments = commitment_bytes
@@ -212,7 +224,8 @@ def prove_jolt(elf_path: str, *, memory_size: int = 32768,
             bproof = batch.prove_batch_opening(transcript, claims, phase.srs,
                                                phase.global_num_vars,
                                                backend=backend,
-                                               device=stage_device)
+                                               device=stage_device,
+                                               mesh=mesh)
         proof.batch_opening = batch.serialize_batch_opening(bproof)
     if with_joint_proof:
         proof.joint_opening_proof = build_joint_opening_proof(

@@ -211,7 +211,7 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
                             emulator=None, log_ram_k: int = 16,
                             stages: int = 7, sound: bool = False,
                             stage1_backend: str | None = None,
-                            device=None, bc_index=None,
+                            device=None, mesh=None, bc_index=None,
                             backend: str | None = None) -> JoltConversion:
     """Drive the Jolt proof stages implemented so far. Pass the finished
     emulator to enable the stage-2 batched sumcheck (needs RAM traces).
@@ -221,8 +221,19 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
     termination access (which has no witness row) is excluded — the guest
     must write the termination word itself (guest halt convention) — and
     RAF aggregates with the BE-by-cycle eq table so its input claim equals
-    the true sum; stages 5-12 run their real protocols."""
+    the true sum; stages 5-12 run their real protocols.
+
+    backend (None: the host tier) and stage1_backend (None: as backend)
+    name where the wide rounds run: "device" on `device`, "mesh" on
+    `mesh`, whose first device also holds the witness columns."""
     from ..utils.log import metrics, zlog
+
+    s1_backend = stage1_backend or backend or "host"
+    s1_mesh = mesh if s1_backend == "mesh" else None
+    # stages 2-4 (and the device witness columns): on `device`, or on the
+    # mesh with its first device for the unsharded tables
+    s_dev, mesh = ((mesh.devices[0], mesh) if backend == "mesh"
+                   else (device, None))
 
     conv = JoltConversion()
     with metrics.stage("witness_gen"):
@@ -231,7 +242,7 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
         slots = (bc_index.slots_per_cycle(padded_steps)
                  if bc_index is not None and getattr(bc_index, "expanded", False)
                  else None)
-        raw_cols: dict | None = {} if backend == "device" else None
+        raw_cols: dict | None = {} if backend in ("device", "mesh") else None
         wcols = ri.witness_columns(padded_steps, sound=sound, slots=slots,
                                    raw_out=raw_cols)
     dev_store = None
@@ -240,13 +251,13 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
         # the stage engines' tables never ship as 32-byte residues
         from ..parallel.device_cols import WitnessStore
 
-        dev_store = WitnessStore(raw_cols, len(padded_steps), device=device)
+        dev_store = WitnessStore(raw_cols, len(padded_steps), device=s_dev)
 
     with metrics.stage("stage1"):
-        s1_backend = stage1_backend or backend or "host"
         conv.stage1 = prove_stage1_jolt(padded_steps, tau, transcript,
                                         witness_cols=wcols,
-                                        backend=s1_backend, device=device)
+                                        backend=s1_backend, device=device,
+                                        mesh=s1_mesh)
     zlog("STAGE1", f"uni_skip_claim={conv.stage1.uni_skip_claim} "
                    f"rounds={len(conv.stage1.compressed_polys)}")
     conv.proof.stage1_uni_skip = UniSkipFirstRoundProof(conv.stage1.uni_skip_coeffs)
@@ -299,7 +310,8 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
                 program_inputs=bytes(emulator.device.inputs),
                 program_outputs=bytes(emulator.device.outputs),
                 is_panicking=emulator.device.panic,
-                backend=backend, device=device, dev_store=dev_store,
+                backend=backend, device=s_dev, mesh=mesh,
+                dev_store=dev_store,
             )
         conv.proof.stage2_sumcheck = SIP(conv.stage2_batch.compressed_polys)
         zlog("STAGE2", f"rounds={len(conv.stage2_batch.compressed_polys)} "
@@ -339,7 +351,8 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
             conv.stage3 = prove_stage3(transcript, None, n_cycle_vars,
                                        r_spartan, r_product, oc,
                                        wcols=conv.stage1.wcols,
-                                       backend=backend, device=device,
+                                       backend=backend, device=s_dev,
+                                       mesh=mesh,
                                        dev_store=dev_store)
         conv.proof.stage3_sumcheck = SIP(conv.stage3.compressed_polys)
         _insert_stage3_claims(conv.proof.opening_claims, conv.stage3)
@@ -357,7 +370,7 @@ def convert_with_transcript(padded_steps, tau: list[int], transcript,
                 emulator.device.layout.lowest_address(),
                 conv.stage2_batch, conv.stage3,
                 n_cycle_vars, log_ram_k, sound=sound,
-                backend=backend, device=device)
+                backend=backend, device=s_dev, mesh=mesh)
         conv.proof.stage4_sumcheck = SIP(conv.stage4.compressed_polys)
         _insert_stage4_claims(conv.proof.opening_claims, conv.stage4)
 

@@ -60,16 +60,17 @@ class Stage3Result:
 def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
                  r_outer: list[int], r_product: list[int],
                  opening_claims, wcols=None,
-                 backend: str | None = None, device=None,
+                 backend: str | None = None, device=None, mesh=None,
                  dev_store=None) -> Stage3Result:
     """opening_claims: callable (poly_name, sumcheck_name, index) -> int.
 
     backend "device" runs the wide rounds' product sums and folds on
-    `device` (parallel/stage_engine): 7 dense product instances — the
-    two Shift terms, the four InstructionInput 3-factor sums (their shared
-    weight eq_outer + γ²·eq_prod precombined once; folding is linear so
-    binding the combined table is identical to recombining each round), and
-    the Registers instance — with per-round evals drained in ONE download.
+    `device` ("mesh": sharded over `mesh`; parallel/stage_engine): 7
+    dense product instances — the two Shift terms, the four
+    InstructionInput 3-factor sums (their shared weight eq_outer +
+    γ²·eq_prod precombined once; folding is linear so binding the combined
+    table is identical to recombining each round), and the Registers
+    instance — with per-round evals drained in ONE download.
     Proof bytes are identical to the host path."""
     res = Stage3Result()
     T = 1 << n_cycle_vars
@@ -109,7 +110,7 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
 
     from ..native.frvec import FrVec
 
-    use_dev_tables = (backend == "device" and T >= 4
+    use_dev_tables = (backend in ("device", "mesh") and T >= 4
                       and dev_store is not None)
 
     # dense tables
@@ -163,11 +164,12 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
                     if not use_dev_tables else None)
 
     engines = None
-    if backend == "device" and T >= 4:
+    if backend in ("device", "mesh") and T >= 4:
         from ..parallel.stage_engine import (DeviceProductTables,
                                              drain_futures, flush_many,
                                              round_evals_many)
 
+        on = dict(device=device, mesh=mesh)
         if dev_store is not None:
             # Raw-upload tier (parallel/device_cols): every engine table is
             # device-resident — witness columns raw-uploaded + encoded on
@@ -192,36 +194,36 @@ def prove_stage3(transcript, witness_rows, n_cycle_vars: int,
                                      g(I.FlagVirtualInstruction),
                                      g(I.FlagIsFirstInSequence),
                                      g(I.FlagIsNoop)],
-                                    degree=2, device=device),
+                                    degree=2, **on),
                 DeviceProductTables([eqp1_prod,
                                      dev_store.flags_not(I.FlagIsNoop)],
-                                    degree=2, device=device),
+                                    degree=2, **on),
                 DeviceProductTables([eqw0_d, g(I.FlagRightOperandIsRs2),
-                                     g(I.Rs2Value)], degree=3, device=device),
+                                     g(I.Rs2Value)], degree=3, **on),
                 DeviceProductTables([eqw0_d, g(I.FlagRightOperandIsImm),
-                                     g(I.Imm)], degree=3, device=device),
+                                     g(I.Imm)], degree=3, **on),
                 DeviceProductTables([eqw0_d, g(I.FlagLeftOperandIsRs1),
-                                     g(I.Rs1Value)], degree=3, device=device),
+                                     g(I.Rs1Value)], degree=3, **on),
                 DeviceProductTables([eqw0_d, g(I.FlagLeftOperandIsPC),
-                                     g(I.UnexpandedPC)], degree=3, device=device),
+                                     g(I.UnexpandedPC)], degree=3, **on),
                 DeviceProductTables([eq_outer_d, reg_combo_d],
                                     [g(I.RdWriteValue), g(I.Rs1Value),
-                                     g(I.Rs2Value)], degree=2, device=device),
+                                     g(I.Rs2Value)], degree=2, **on),
             ]
         else:
             eqw0 = eq_outer.copy().axpy_(eq_prod, g_instr2)
             engines = [
                 DeviceProductTables([eqp1_outer, combo],
                                     [upc, pc, virt, first, noop],
-                                    degree=2, device=device),
+                                    degree=2, **on),
                 DeviceProductTables([eqp1_prod, one_minus_noop], degree=2,
-                                    device=device),
-                DeviceProductTables([eqw0, r_rs2, rs2], degree=3, device=device),
-                DeviceProductTables([eqw0, r_imm, imm], degree=3, device=device),
-                DeviceProductTables([eqw0, l_rs1, rs1], degree=3, device=device),
-                DeviceProductTables([eqw0, l_pc, i_upc], degree=3, device=device),
+                                    **on),
+                DeviceProductTables([eqw0, r_rs2, rs2], degree=3, **on),
+                DeviceProductTables([eqw0, r_imm, imm], degree=3, **on),
+                DeviceProductTables([eqw0, l_rs1, rs1], degree=3, **on),
+                DeviceProductTables([eqw0, l_pc, i_upc], degree=3, **on),
                 DeviceProductTables([eq_outer, reg_combo],
-                                    [rd, r_rs1v, r_rs2v], degree=2, device=device),
+                                    [rd, r_rs1v, r_rs2v], degree=2, **on),
             ]
 
     for rnd in range(n_cycle_vars):

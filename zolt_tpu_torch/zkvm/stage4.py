@@ -574,7 +574,7 @@ class ValEvaluationProver:
     def __init__(self, accesses, initial_ram, trace_len: int, k: int,
                  r_address_le: list[int], r_cycle_le: list[int],
                  start_address: int, backend: str | None = None,
-                 device=None):
+                 device=None, mesh=None):
         from ..native.frvec import FrVec
 
         inc, wa = _build_inc_wa(accesses, initial_ram, trace_len,
@@ -588,11 +588,12 @@ class ValEvaluationProver:
         self.wa = wa
         self.lt = lt
         self._eng = None
-        if backend == "device" and n >= 2:
+        if backend in ("device", "mesh") and n >= 2:
             from ..parallel.stage_engine import DeviceProductTables
 
             self._eng = DeviceProductTables(
-                [self.inc, self.wa, self.lt], degree=3, device=device)
+                [self.inc, self.wa, self.lt], degree=3, device=device,
+                mesh=mesh)
             self.inc = self.wa = self.lt = None
 
     def num_rounds(self) -> int:
@@ -650,7 +651,7 @@ class ValFinalProver:
 
     def __init__(self, accesses, initial_ram, trace_len: int,
                  r_address: list[int], start_address: int,
-                 backend: str | None = None, device=None):
+                 backend: str | None = None, device=None, mesh=None):
         from ..native.frvec import FrVec
 
         k = 1 << len(r_address)
@@ -663,11 +664,11 @@ class ValFinalProver:
         self.inc = inc
         self.wa = wa
         self._eng = None
-        if backend == "device" and n >= 2:
+        if backend in ("device", "mesh") and n >= 2:
             from ..parallel.stage_engine import DeviceProductTables
 
             self._eng = DeviceProductTables(
-                [self.inc, self.wa], degree=3, device=device)
+                [self.inc, self.wa], degree=3, device=device, mesh=mesh)
             self.inc = self.wa = None
 
     def num_rounds(self) -> int:
@@ -737,7 +738,7 @@ def prove_stage4(transcript, padded_steps, accesses, initial_ram,
                  start_address: int, stage2_res, stage3_res,
                  n_cycle_vars: int, log_ram_k: int,
                  sound: bool = False, backend: str | None = None,
-                 device=None) -> Stage4Result:
+                 device=None, mesh=None) -> Stage4Result:
     """Stage-4 batched sumcheck, bit-exact transcript flow
     (reference src/zkvm/proof_converter.zig:1605-2628).
 
@@ -818,14 +819,14 @@ def prove_stage4(transcript, padded_steps, accesses, initial_ram,
     val_eval = ValEvaluationProver(accesses, initial_ram, trace_len,
                                    1 << log_ram_k, r_address_le, r_cycle_le,
                                    start_address, backend=backend,
-                                   device=device)
+                                   device=device, mesh=mesh)
     # compat mode reproduces the reference's (rigged) first-log_k point;
     # sound mode uses the OutputSumcheck's actual bound point so the input
     # claim val_final_claim − init_eval equals the instance's true sum
     r_addr_vf = ch2[out_start:] if sound else [ch2[i] for i in range(log_ram_k)]
     val_final = ValFinalProver(accesses, initial_ram, trace_len,
                                r_addr_vf, start_address,
-                               backend=backend, device=device)
+                               backend=backend, device=device, mesh=mesh)
 
     rounds = [max_rounds, val_eval.num_rounds(), val_final.num_rounds()]
     batched_claim = 0
@@ -841,7 +842,7 @@ def prove_stage4(transcript, padded_steps, accesses, initial_ram,
         # the device-backed instances' evals: one grouped launch, one
         # download
         pre_ve = pre_vf = None
-        if backend == "device":
+        if backend in ("device", "mesh"):
             from ..parallel.stage_engine import drain_futures, round_evals_many
 
             engs = [p.device_engine() if remaining <= nr else None

@@ -136,7 +136,7 @@ def _eq_table_be(taus: list[int]) -> list[int]:
 class StreamingOuterProver:
     def __init__(self, cycle_witnesses, tau: list[int],
                  lagrange_tau_r0: int | None = None, backend: str = "host",
-                 device=None, witness_cols=None):
+                 device=None, witness_cols=None, mesh=None):
         """`cycle_witnesses`: per-cycle rows (row path) or None when
         `witness_cols` (the 43 FrVec columns, r1cs.inputs.witness_columns)
         is given — the columnar path never materializes rows."""
@@ -153,12 +153,13 @@ class StreamingOuterProver:
         self.az: list[int] | None = None
         self.bz: list[int] | None = None
         self.r_stream: int | None = None
-        # backend: "host" (FrVec tier) or "device" (word tensors on
-        # `device`) — bit-identical results; the split-eq bookkeeping and
-        # cubic-poly algebra always stay host (O(1) per round, the
-        # Fiat-Shamir boundary)
+        # backend: "host" (FrVec tier), "device" (word tensors on
+        # `device`) or "mesh" (az/bz sharded over `mesh`) — bit-identical
+        # results; the split-eq bookkeeping and cubic-poly algebra always
+        # stay host (O(1) per round, the Fiat-Shamir boundary)
         self.backend_kind = backend
         self.device = device
+        self.mesh = mesh
         self._dev = None
 
     def _cols(self):
@@ -260,11 +261,11 @@ class StreamingOuterProver:
         bz1 = _combine_cols(bz_cols[1], lam[:SECOND_GROUP_SIZE])
         self.az = FrVec.interleave(az0, az1)
         self.bz = FrVec.interleave(bz0, bz1)
-        if self.backend_kind == "device":
+        if self.backend_kind in ("device", "mesh"):
             from .device_outer import DeviceOuterRounds
 
             self._dev = DeviceOuterRounds(self.az, self.bz, se=self.split_eq,
-                                          device=self.device)
+                                          device=self.device, mesh=self.mesh)
             self.az = self.bz = None
 
     def num_remaining_rounds(self) -> int:
@@ -343,15 +344,17 @@ class Stage1Proof:
 
 def prove_stage1_jolt(padded_steps, tau: list[int], transcript,
                       witness_rows=None, backend: str = "host",
-                      device=None, witness_cols=None) -> Stage1Proof:
+                      device=None, witness_cols=None,
+                      mesh=None) -> Stage1Proof:
     """Full stage-1 flow with exact transcript discipline
     (proof_converter.zig:380-540). `tau` must already have been sampled from
     the same transcript (num_cycle_vars + 2 values). Pass witness_rows (row
     matrix) or witness_cols (43 FrVec columns — the production columnar
     path) to prove over a caller-built witness.
 
-    backend selects where the remaining-round hot loops run ("host" or
-    "device" — see device_outer); the proof bytes are identical."""
+    backend selects where the remaining-round hot loops run ("host",
+    "device" on `device`, or "mesh" on `mesh` — see device_outer); the
+    proof bytes are identical."""
     witnesses = None
     if witness_cols is None:
         witnesses = witness_rows if witness_rows is not None \
@@ -374,7 +377,7 @@ def prove_stage1_jolt(padded_steps, tau: list[int], transcript,
     wcols = prover._wcols
     prover = StreamingOuterProver(witnesses, tau, lagrange_tau_r0,
                                   backend=backend, device=device,
-                                  witness_cols=witness_cols)
+                                  witness_cols=witness_cols, mesh=mesh)
     prover._az_cols, prover._bz_cols = cols
     prover._wcols = wcols
     proof.wcols = wcols  # witness columns, reused by later stages
