@@ -68,10 +68,15 @@ Phases, one status line each; the first failure ends the run non-zero:
 Between phases 3 and 4, g1: the G1 kernels (csrc/g1.cu, rows_msm.cu,
 pippenger.cu) against their plain versions on the same CUDA tensors and
 the host C tier, timed as in phase 3: A (pt_add, pt_double) on 2^16
-pairs, half of them edge cases, words equal; B (the row MSMs) at the
-sound shape (40 one-hot cubes of 2^20 in the 2^10 x 2^10 layout, one
-plane) and the compat shape (32 polys of 2^16 values below 16, 2^8 x
-2^8, four planes), affine rows equal to the plain version's and to
+pairs, half of them edge cases (a synthetic mix that reaches every
+branch), and pt_add on 2^16 generic pairs (what real bucket and point
+sums give), words equal; A's fold (pt_sum) at msm_mesh's shape, 4 x 2048
+points meeting every case mid-fold, words equal to pt_sum_plain, and at 4
+and 8 lanes a pair on that stack tiled to 2^11-2^13 points (a sweep of
+device ms); B
+(the row MSMs) at the sound shape (40 one-hot cubes of 2^20 in the
+2^10 x 2^10 layout, one plane) and the compat shape (32 polys of 2^16
+values below 16, 2^8 x 2^8, four planes), affine rows equal to the plain version's and to
 `dory.row_commitments`, at the lanes a row its wrapper picks and, in a
 sweep of device ms, at every other; C and D (the Pippenger's bucket and
 window sums) in the Pippenger at n = 2^16 and 2^18 against the native C
@@ -147,7 +152,7 @@ After phase 5:
 12. mesh: the mesh backend (zolt_tpu_torch/parallel/mesh.py) on
    make_mesh(["cuda:0"] * MESH_SHARDS), four shards of the one card, so
    every shard's kernels, the cross-shard sums, the gather of the shards'
-   prefixes and kernel A's ladder run on it (the same code puts a shard on
+   prefixes and kernel A's fold run on it (the same code puts a shard on
    each of cuda:0..7). sharded_sumcheck_prove at 2^16, k = 3, tail 0: its
    round evals, challenges, finals and transcript equal to the
    single-device engine's on the same tables. prove_jolt(elf, backend="mesh") of the
@@ -156,9 +161,10 @@ After phase 5:
    and at T = 2^16 to JAX_DIGEST_T16 / JAX_SOUND_DIGEST_T16, with its peak
    device memory and each kernel's launches, path bound and device ms by
    CUDA events; every kernel of MESH_PATH must launch. msm_mesh at 2^16:
-   affine equal to the native C MSM, C, D and A launched, A's launches (the
-   ladder summing the shards' bucket arrays) timed by CUDA events beside
-   their bound, its first launch's words equal to pt_add_plain's. The
+   affine equal to the native C MSM, C, D and A's fold launched (one fold
+   of the shards' bucket arrays a pass, 4 launches; its batch add none),
+   A's launches timed by CUDA events beside their bound, each launch's
+   words equal to pt_sum_plain's. The
    CLI's `prove --jolt-format --sound --backend mesh` and `--backend host
    --stage1-backend mesh` at T = 2^12 on make_mesh() (every CUDA device),
    tail 0: both files' sha256 equal to JAX_CLI_SOUND_DIGEST_T12.
@@ -243,6 +249,9 @@ KERNELS = [
 G1_KERNELS = [
     ("g1_add_double", "zolt_tpu_torch/csrc/g1.cu",
      "zolt_tpu/curve/device.py:58,74 (pt_double, pt_add)"),
+    ("g1_sum", "zolt_tpu_torch/csrc/g1.cu",
+     "zolt_tpu/msm/pippenger.py:230-237 (msm_mesh's fori_loop of "
+     "zolt_tpu/curve/device.py:74 pt_add)"),
     ("row_plane_sums", "zolt_tpu_torch/csrc/rows_msm.cu",
      "zolt_tpu/msm/rows_device.py:50,69 (_plane_sums, _horner_planes)"),
     ("bucket_accumulate", "zolt_tpu_torch/csrc/pippenger.cu",
@@ -803,22 +812,42 @@ def schedule_sweep(torch, gen, stats: dict) -> None:
 # G1: kernels A-D, the commitments' two tiers, HyperKZG
 # ---------------------------------------------------------------------------
 
-def g1_edge_pairs(n: int, seed: int):
+def jac_words(points, lams):
+    """Host affine points (None: the identity, (0, 1, 0)) as a Jacobian
+    triple of CPU tensors of Fp Montgomery words with Z = λ."""
+    from zolt_tpu_torch.field import limb
+    from zolt_tpu_torch.field.params import FP
+
+    p = FP.p
+    xs, ys, zs = [], [], []
+    for pt, lm in zip(points, lams):
+        if pt is None:
+            xs.append(0), ys.append(1), zs.append(0)
+        else:
+            xs.append(pt[0] * lm * lm % p)
+            ys.append(pt[1] * pow(lm, 3, p) % p)
+            zs.append(lm)
+    return tuple(limb.encode(v, limb.FP_C) for v in (xs, ys, zs))
+
+
+def g1_edge_pairs(n: int, seed: int, generic: bool = False):
     """n pairs of Jacobian points as CPU tensors of Fp Montgomery words,
     each with a random Z, drawn from 256 multiples of the generator: about
     half are edge cases (identity + P, P + identity, identity + identity,
-    P + P with another Z and with the same Z, P + (−P)), the rest generic."""
+    P + P with another Z and with the same Z, P + (−P)), the rest generic;
+    with `generic`, every pair is P + Q with Q ≠ ±P."""
     import numpy as np
 
     from zolt_tpu_torch.curve import host
-    from zolt_tpu_torch.field import limb
     from zolt_tpu_torch.field.params import FP
 
     rng = np.random.default_rng(seed)
     base = host.random_points(256, seed=seed)
     p = FP.p
-    kinds = rng.integers(0, 12, n)
-    ia, ib = rng.integers(0, 256, n), rng.integers(0, 256, n)
+    kinds = rng.integers(0, 12, n) if not generic else np.full(n, 11)
+    ia = rng.integers(0, 256, n)
+    ib = (ia + rng.integers(1, 256, n)) % 256 if generic else \
+        rng.integers(0, 256, n)
     lam = [int(x) * int(y) % p or 1 for x, y in zip(
         rng.integers(1, 1 << 62, 2 * n), rng.integers(1, 1 << 62, 2 * n))]
     a, b = [], []
@@ -829,19 +858,45 @@ def g1_edge_pairs(n: int, seed: int):
                   5: host.neg(P)}.get(int(k), Q))
         if k == 4:
             lam[n + t] = lam[t]
+    return jac_words(a, lam[:n]), jac_words(b, lam[n:])
 
-    def jac(points, lams):
-        xs, ys, zs = [], [], []
-        for pt, lm in zip(points, lams):
-            if pt is None:
-                xs.append(0), ys.append(1), zs.append(0)
-            else:
-                xs.append(pt[0] * lm * lm % p)
-                ys.append(pt[1] * pow(lm, 3, p) % p)
-                zs.append(lm)
-        return tuple(limb.encode(v, limb.FP_C) for v in (xs, ys, zs))
 
-    return jac(a, lam[:n]), jac(b, lam[n:])
+def g1_fold_stack(k: int, n: int, seed: int):
+    """A stacked Jacobian triple of (k, n, 8) CPU word tensors, each point
+    with a random Z, drawn from 16 multiples of the generator, whose left
+    fold meets every case of kernel A's add mid-fold. Column i's kind: 0
+    random points, a quarter of them empty buckets (the identity); 1 its
+    step 1 the running sum's negative (the sum becomes the identity, then
+    meets the next point); 2 its last step the running sum itself (a
+    doubling); 3 every array empty but one."""
+    import numpy as np
+
+    from zolt_tpu_torch.curve import host
+    from zolt_tpu_torch.field.params import FP
+
+    rng = np.random.default_rng(seed)
+    base = host.random_points(16, seed=seed)
+    cols = []
+    for i in range(n):
+        kind = int(rng.integers(0, 4))
+        col = [base[int(j)] if rng.random() > 0.25 else None
+               for j in rng.integers(0, len(base), k)]
+        if kind == 1 and k > 1:
+            col[0] = col[0] or base[0]
+            col[1] = host.neg(col[0])
+        if kind == 2 and k > 1:
+            acc = None
+            for pt in col[:-1]:
+                acc = host.add(acc, pt)
+            col[-1] = acc
+        if kind == 3:
+            col = [None] * k
+            col[int(rng.integers(0, k))] = base[i % len(base)]
+        cols.append(col)
+    lams = rng.integers(1, 1 << 62, (2, k * n))
+    words = jac_words([col[j] for j in range(k) for col in cols],
+                      [int(x) * int(y) % FP.p for x, y in zip(*lams)])
+    return tuple(c.view(k, n, 8) for c in words)
 
 
 def affine_of(pt) -> list:
@@ -875,12 +930,28 @@ def check_g1(torch, stats: dict, log_t: int):
         raise AssertionError(f"kernel A differs from its plain version: {err}")
     timings(torch, stats, "g1_add_double", lambda: dev.pt_add(pa, pb),
             lambda: dev.pt_add_plain(pa, pb), *dev.add_work(pa, pb),
-            "pt_add, 2^16 pairs, half edge cases", err, phase="g1",
+            "pt_add, 2^16 pairs, half edge cases (synthetic)", err,
+            phase="g1",
             device_name="g1_add_kernel")
     timings(torch, stats, "g1_double", lambda: dev.pt_double(pa),
             lambda: dev.pt_double_plain(pa), *dev.double_work(n),
             "pt_double, 2^16 points", err, phase="g1",
             device_name="g1_double_kernel")
+    t0 = time.perf_counter()
+    ga, gb = (tuple(c.cuda() for c in pt)
+              for pt in g1_edge_pairs(n, 8, generic=True))
+    err = max(max_abs(torch, g, w) for g, w in
+              zip(dev.pt_add(ga, gb), dev.pt_add_plain(ga, gb)))
+    if err:
+        raise AssertionError(f"kernel A differs from its plain version on "
+                             f"generic pairs: {err}")
+    timings(torch, stats, "g1_add_generic", lambda: dev.pt_add(ga, gb),
+            lambda: dev.pt_add_plain(ga, gb), *dev.add_work(ga, gb),
+            "pt_add, 2^16 generic pairs", err, phase="g1",
+            device_name="g1_add_kernel")
+    check_sum(torch, stats)
+    say("g1", f"kernel A's generic pairs, fold and lanes sweep took "
+              f"{time.perf_counter() - t0:.1f} s")
     check_rows(torch, gen, stats)
     t0 = time.perf_counter()
     kzg = srs_mod.insecure_setup(1 << KZG_LOG_N)
@@ -889,6 +960,61 @@ def check_g1(torch, stats: dict, log_t: int):
     check_pippenger(torch, stats, kzg)
     check_bucket_polys(torch, stats, kzg, log_t)
     return kzg
+
+
+# msm_mesh's fold at 2^16 points on MESH_SHARDS shards: a pass stacks the
+# shards' bucket arrays of 8 windows x 256 buckets.
+LADDER = (4, 2048)
+# The lanes sweep: zg1_sum's lanes a pair, at the fold sizes msm_mesh
+# makes (8 to 32 windows a pass; the ladder's stack tiled to n points).
+SUM_LANES = (4, 8)
+SUM_SWEEP_N = (2048, 4096, 8192)
+
+
+def check_sum(torch, stats: dict) -> None:
+    """Kernel A's fold (pt_sum) at the ladder's shape, its words equal to
+    pt_sum_plain's, timed; then the lanes sweep: at each n of SUM_SWEEP_N
+    (the ladder's stack tiled) and each lanes a pair of SUM_LANES, the
+    words equal to the plain fold's and the device ms (torch.profiler, 20
+    calls), from which lanes_per_pair's cut-off was set."""
+    from zolt_tpu_torch.curve import device as dev
+
+    k, n = LADDER
+    stack = tuple(c.cuda() for c in g1_fold_stack(k, n, 9))
+    want = dev.pt_sum_plain(stack)
+    err = max(max_abs(torch, g, w) for g, w in zip(dev.pt_sum(stack), want))
+    if err:
+        raise AssertionError(f"kernel A's fold differs from pt_sum_plain: "
+                             f"{err}")
+    timings(torch, stats, "g1_sum", lambda: dev.pt_sum(stack),
+            lambda: dev.pt_sum_plain(stack), *dev.sum_work(stack),
+            f"pt_sum, {k} x {n} points with mid-fold edge cases, "
+            f"{dev.lanes_per_pair(n)} lanes a pair", err, phase="g1",
+            device_name="g1_sum_kernel")
+    sweep, pick = {}, dev.lanes_per_pair
+    picks = {m: pick(m) for m in SUM_SWEEP_N}
+    try:
+        for m in SUM_SWEEP_N:
+            big = tuple(c.repeat(1, m // n, 1) for c in stack)
+            tiled = tuple(c.repeat(m // n, 1) for c in want)
+            for lanes in SUM_LANES:
+                dev.lanes_per_pair = lambda _, lanes=lanes: lanes
+
+                def run():
+                    return dev.pt_sum(big)
+                if any(not torch.equal(g, w) for g, w in zip(run(), tiled)):
+                    raise AssertionError(f"kernel A's fold at {lanes} lanes "
+                                         f"a pair differs from pt_sum_plain "
+                                         f"({k} x {m})")
+                sweep[f"{m}x{lanes}"] = round(device_ms(torch, run, 20,
+                                                        "g1_sum_kernel"), 4)
+    finally:
+        dev.lanes_per_pair = pick
+    stats["g1_sum"]["lanes_sweep_ms"] = sweep
+    say("g1", f"g1_sum at every lanes a pair (its wrapper's choice replaced "
+              f"for the sweep), {k} x n points (n x lanes: device ms), "
+              f"words equal to pt_sum_plain at each: {sweep}; "
+              f"lanes_per_pair picks {picks}")
 
 
 # The sound prove's one-hot cubes at T = 2^16: about 40 polys of 2^20
@@ -1507,6 +1633,7 @@ def counters() -> dict:
             "product_evals": evals.product_evals.counts,
             "gruen_round": gruen.gruen_round.counts,
             "g1_add": dev.pt_add.counts, "g1_double": dev.pt_double.counts,
+            "g1_sum": dev.pt_sum.counts,
             "row_plane_sums": rows_device.row_sums.counts,
             "bucket_accumulate": pippenger.bucket_sums.counts,
             "window_sums": pippenger.window_sums.counts,
@@ -1529,6 +1656,7 @@ def entry_launches(c: dict) -> dict:
             "gruen_round": c["gruen_round"]["launches"],
             "g1_add_double": (c["g1_add"]["launches"]
                               + c["g1_double"]["launches"]),
+            "g1_sum": c["g1_sum"]["launches"],
             **{k: c[k]["launches"] for k in ("row_plane_sums",
                                              "bucket_accumulate",
                                              "window_sums", "scalar_digits")}}
@@ -2443,7 +2571,7 @@ def run_internal(torch, log_t: int, kzg) -> dict:
 
 
 # The mesh phase: MESH_SHARDS shards on cuda:0, so the shards' kernels, the
-# cross-shard sums, the gather of their prefixes and kernel A's ladder all
+# cross-shard sums, the gather of their prefixes and kernel A's fold all
 # run on the one card; the same code puts a shard on each of cuda:0..7.
 MESH_SHARDS = 4
 # The kernels each mesh prove must launch: the engines' and the outer
@@ -2584,10 +2712,10 @@ def mesh_proves(torch, mesh, log_t: int, device_s: dict,
 
 def mesh_msm(torch, mesh, kzg) -> dict:
     """msm_mesh at 2^16 points on the mesh, affine equal to the native C
-    MSM; kernels C, D and A launch. A's launches (the ladder summing the
-    shards' bucket arrays) timed by CUDA events beside their bound (the
-    work add_work counts on the ladder's own inputs), its first launch's
-    words equal to pt_add_plain's; C and D by CUDA events too."""
+    MSM; kernels C, D and A launch. A's launches (one fold of the shards'
+    bucket arrays a pass, pt_sum) timed by CUDA events beside their bound
+    (the work sum_work counts on the folds' own inputs), each launch's
+    words equal to pt_sum_plain's; C and D by CUDA events too."""
     from zolt_tpu_torch.curve import device as dev
     from zolt_tpu_torch.msm import pippenger
     from zolt_tpu_torch.native import g1_msm_native
@@ -2596,17 +2724,17 @@ def mesh_msm(torch, mesh, kzg) -> dict:
     pts, sc = msm_inputs(kzg, n, 16)
     want = g1_msm_native(pts, sc)
     caught = []
-    orig = dev.pt_add
+    orig = dev.pt_sum
 
-    def spy(pa, pb):
-        caught.append((pa, pb, orig(pa, pb)))
-        return caught[-1][2]
+    def spy(stack):
+        caught.append((stack, orig(stack)))
+        return caught[-1][1]
 
     spy.counts = orig.counts
     reset_launches()
-    dev.pt_add = spy
+    dev.pt_sum = spy
     try:
-        with launch_events(torch, "zg1_add") as a_ev, \
+        with launch_events(torch, "zg1_sum") as a_ev, \
                 launch_events(torch, "zg1_bucket_accumulate") as c_ev, \
                 launch_events(torch, "zg1_window_sums") as d_ev:
             t0 = time.perf_counter()
@@ -2614,33 +2742,39 @@ def mesh_msm(torch, mesh, kzg) -> dict:
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
     finally:
-        dev.pt_add = orig
+        dev.pt_sum = orig
     launches, _ = read_launches()
     if got != want:
         raise AssertionError("msm_mesh differs from the native C MSM")
-    idle = [k for k in ("g1_add_double", "bucket_accumulate", "window_sums")
+    idle = [k for k in ("g1_sum", "bucket_accumulate", "window_sums")
             if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched by msm_mesh: {idle}")
-    pa, pb, first = caught[0]
-    err = max(max_abs(torch, a, b)
-              for a, b in zip(first, dev.pt_add_plain(pa, pb)))
+    if launches["g1_add_double"]:
+        raise AssertionError("msm_mesh launched kernel A's batch add")
+    t0 = time.perf_counter()
+    err = max(max_abs(torch, a, b) for stack, out in caught
+              for a, b in zip(out, dev.pt_sum_plain(stack)))
     if err:
-        raise AssertionError("kernel A's ladder add differs from "
-                             "pt_add_plain")
+        raise AssertionError("kernel A's fold in msm_mesh differs from "
+                             "pt_sum_plain")
     nbytes = imads = 0
-    for pa, pb, _ in caught:
-        w = dev.add_work(pa, pb)
+    for stack, _ in caught:
+        w = dev.sum_work(stack)
         nbytes, imads = nbytes + w[0], imads + w[1]
     b_ms, b_by = bound(nbytes, imads)
+    check_s = time.perf_counter() - t0
     a_ms = round(sum(a_ev), 4)
+    shape = tuple(caught[0][0][0].shape)
     say("mesh", f"msm_mesh at 2^16 on {mesh.size} shards: {secs:.3f} s, "
                 f"affine equal to the native C MSM; launches {launches}; "
-                f"kernel A's {len(a_ev)} ladder launches {a_ev} ms by CUDA "
-                f"events, sum {a_ms} against its bound {b_ms:.4f} ms by "
-                f"{b_by} ({nbytes} bytes, {imads} IMADs; share "
-                f"{b_ms / a_ms * 100:.1f} %), its first launch's words equal "
-                f"to pt_add_plain's; C {round(sum(c_ev), 4)} ms in "
+                f"kernel A's {len(a_ev)} folds of {shape} words "
+                f"({dev.lanes_per_pair(shape[1])} lanes a pair) {a_ev} ms "
+                f"by CUDA events, sum {a_ms} against its bound {b_ms:.4f} ms "
+                f"by {b_by} ({nbytes} bytes, {imads} IMADs; share "
+                f"{b_ms / a_ms * 100:.1f} %), each launch's words equal to "
+                f"pt_sum_plain's (the check and the bound {check_s:.1f} s); "
+                f"C {round(sum(c_ev), 4)} ms in "
                 f"{len(c_ev)} launches, D {round(sum(d_ev), 4)} ms in "
                 f"{len(d_ev)}")
     return {"seconds": secs, "launches": launches, "a_ms": a_ms,
@@ -2786,8 +2920,10 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                            "HyperKZG commit and open at 2^18"
                            if name in KZG_PATH else
                            f"msm_mesh at 2^16 on {MESH_SHARDS} shards of "
-                           f"cuda:0: the ladder summing the shards' bucket "
-                           f"arrays"),
+                           f"cuda:0: one fold of the shards' bucket arrays "
+                           f"a pass" if name == "g1_sum" else
+                           "none (msm_mesh folds with g1_sum); timed at its "
+                           "batch shapes"),
                      **{k: stats[name][k] for k in keys},
                      shape=stats[name]["shape"])
         if name in KZG_PATH:
@@ -2796,12 +2932,18 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                           if k.startswith(("bound_ms", "device_ms",
                                            "kernel_launches"))})
         if name == "g1_add_double":
+            entry.update(generic_shape={k: stats["g1_add_generic"][k]
+                                        for k in keys + ("shape",)},
+                         double_shape={k: stats["g1_double"][k]
+                                       for k in keys + ("shape",)})
+        if name == "g1_sum":
             m = mesh["msm"]
             entry.update(path_device_ms_events=m["a_ms"],
                          path_each_launch_ms=m["a_each_ms"],
                          path_bound_ms=m["a_bound_ms"],
                          path_bound_by=m["a_bound_by"],
-                         path_max_abs_err=m["a_max_abs_err"])
+                         path_max_abs_err=m["a_max_abs_err"],
+                         lanes_sweep_ms=stats[name]["lanes_sweep_ms"])
         if name == "bucket_accumulate":
             entry.update({f"{p}_shape": {k: stats[f"{name}_{p}"][k] for k in
                                          keys + ("shape",)}

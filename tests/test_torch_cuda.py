@@ -21,7 +21,8 @@ schedules (a thread a pair, two threads a pair) on each side of the
 crossover, and each of its ways to weight by the eq factors; the fold and
 the k = 2 product evals at the sound batch opening's shapes (groups of
 2^20 and 2^16 entries, 16 a launch); the G1 kernels A-D against their
-plain versions (A word for word, B-D in affine form, B and the Pippenger
+plain versions (A word for word, its fold at every lanes a pair, B-D in
+affine form, B and the Pippenger
 also against the native C tier) and HyperKZG on the Pippenger; the
 sound prove at T = 2^10 on the GPU (its one-hot cubes through kernel B)
 against the host tier's bytes; the legacy and internal proves at
@@ -287,14 +288,16 @@ def test_sound_prove_on_cuda_equals_the_cpu_bytes(tmp_path, monkeypatch):
 # G1 kernels A-D (csrc/g1.cu, rows_msm.cu, pippenger.cu)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n", [1, 100, 4096])
-def test_g1_add_double_kernel_matches_plain(gen, n):
-    """Kernel A's words equal the plain versions' (the JAX formulas), edge
-    cases included."""
+@pytest.mark.parametrize("generic", [False, True])
+@pytest.mark.parametrize("n", [1, 100, 4096, (1 << 16) + 5])
+def test_g1_add_double_kernel_matches_plain(gen, n, generic):
+    """Kernel A's words equal the plain versions' (the JAX formulas), on
+    pairs half of them edge cases and on generic pairs only."""
     from chip_smoke import g1_edge_pairs
     from zolt_tpu_torch.curve import device as dev
 
-    pa, pb = (tuple(c.cuda() for c in pt) for pt in g1_edge_pairs(n, n))
+    pa, pb = (tuple(c.cuda() for c in pt)
+              for pt in g1_edge_pairs(n, n, generic=generic))
     for got, want, op in ((dev.pt_add(pa, pb), dev.pt_add_plain(pa, pb),
                            dev.pt_add),
                           (dev.pt_double(pa), dev.pt_double_plain(pa),
@@ -308,6 +311,30 @@ def test_g1_add_double_kernel_matches_plain(gen, n):
     if sq[0].numel():
         assert all(torch.equal(g, w) for g, w in
                    zip(dev.pt_double(sq), dev.pt_double_plain(sq)))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("n", [1, 100, 2048, 4099])
+def test_g1_sum_kernel_matches_plain(gen, monkeypatch, k, n):
+    """Kernel A's fold (zg1_sum, one launch) at its wrapper's lanes a pair
+    and at 4 and 8 gives pt_sum_plain's words on k arrays whose fold
+    meets empty buckets, the running sum's negative and the running sum
+    itself mid-fold; the kernel refuses 2 lanes a pair."""
+    from chip_smoke import g1_fold_stack
+    from zolt_tpu_torch.curve import device as dev
+
+    stack = tuple(c.cuda() for c in g1_fold_stack(k, n, 1000 * k + n))
+    want = dev.pt_sum_plain(stack)
+    for lanes in (dev.lanes_per_pair(n), 4, 8):
+        monkeypatch.setattr(dev, "lanes_per_pair", lambda _: lanes)
+        before = dev.pt_sum.counts["launches"]
+        got = dev.pt_sum(stack)
+        torch.cuda.synchronize()
+        assert dev.pt_sum.counts["launches"] == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), lanes
+    monkeypatch.setattr(dev, "lanes_per_pair", lambda _: 2)
+    with pytest.raises(RuntimeError, match="zg1_sum"):
+        dev.pt_sum(stack)
 
 
 def _edge_basis(g1_vec, cols: int) -> list:
@@ -645,8 +672,8 @@ def test_mesh_engines_on_four_shards_of_one_card(gen, monkeypatch):
 
 def test_msm_mesh_on_four_shards_of_one_card(gen):
     """msm_mesh at 2^12 points on make_mesh(["cuda:0"] * 4) against the
-    native C MSM (affine); kernel C launches once a shard a pass, kernel A
-    three times a pass, kernel D once a pass."""
+    native C MSM (affine); kernel C launches once a shard a pass, kernel
+    A's fold once a pass (its batch add never), kernel D once a pass."""
     from chip_smoke import msm_inputs
     from zolt_tpu_torch.curve import device as dev
     from zolt_tpu_torch.msm import pippenger
@@ -657,10 +684,12 @@ def test_msm_mesh_on_four_shards_of_one_card(gen):
     n = 1 << 12
     pts, sc = msm_inputs(srs_mod.insecure_setup(n), n, n)
     c = (pippenger.bucket_sums.counts["launches"],
-         dev.pt_add.counts["launches"],
-         pippenger.window_sums.counts["launches"])
+         dev.pt_sum.counts["launches"],
+         pippenger.window_sums.counts["launches"],
+         dev.pt_add.counts["launches"])
     got = pippenger.msm_mesh(make_mesh(["cuda:0"] * 4), pts, sc)
     assert got == g1_msm_native(pts, sc)
     assert (pippenger.bucket_sums.counts["launches"] - c[0],
-            dev.pt_add.counts["launches"] - c[1],
-            pippenger.window_sums.counts["launches"] - c[2]) == (16, 12, 4)
+            dev.pt_sum.counts["launches"] - c[1],
+            pippenger.window_sums.counts["launches"] - c[2],
+            dev.pt_add.counts["launches"] - c[3]) == (16, 4, 4, 0)

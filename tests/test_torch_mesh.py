@@ -368,20 +368,21 @@ def msm_case():
 @pytest.mark.parametrize("n_dev,wpp", [(1, 8), (2, 32), (3, 32), (8, 32)])
 def test_msm_mesh_matches_jax_oracle(monkeypatch, msm_case, n_dev, wpp):
     """Against JAX's msm_oracle, affine (3 shards do not divide 64: two
-    identities pad it); the shards' bucket arrays meet in n_dev − 1 point
-    additions a pass of `wpp` windows (8 by default)."""
+    identities pad it); the shards' bucket arrays meet in one fold
+    (`pt_sum`) a pass of `wpp` windows (8 by default), of n_dev stacked
+    arrays of wpp·256 points (none on one shard)."""
     pts, scalars, want = msm_case
     adds = []
-    add = pippenger.dev.pt_add
+    fold = pippenger.dev.pt_sum
 
-    def spy(pa, pb):
-        adds.append(pa[0].shape[0])
-        return add(pa, pb)
+    def spy(stack):
+        adds.append(tuple(stack[0].shape))
+        return fold(stack)
 
-    monkeypatch.setattr(pippenger.dev, "pt_add", spy)
+    monkeypatch.setattr(pippenger.dev, "pt_sum", spy)
     kw = {} if wpp == 8 else {"windows_per_pass": wpp}
     assert pippenger.msm_mesh(_mesh(n_dev), pts, scalars, **kw) == want
-    assert adds == [wpp * 256] * ((n_dev - 1) * (32 // wpp))
+    assert adds == [(n_dev, wpp * 256, 8)] * (32 // wpp if n_dev > 1 else 0)
 
 
 # -- prove_jolt ------------------------------------------------------------------

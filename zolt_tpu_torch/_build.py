@@ -119,6 +119,8 @@ def kernels() -> KernelLib:
     lib.zg1_add.restype = I
     lib.zg1_double.argtypes = [P] * 6 + [L, P]
     lib.zg1_double.restype = I
+    lib.zg1_sum.argtypes = [P] * 6 + [L, I, I, P]
+    lib.zg1_sum.restype = I
     lib.zg1_row_msm.argtypes = [P, L, I, I, I, P, P, P, P, P, P]
     lib.zg1_row_msm.restype = I
     lib.zg1_bucket_accumulate.argtypes = [P, P, P, I, P, P, I] + [P] * 7

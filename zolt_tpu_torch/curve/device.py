@@ -5,12 +5,14 @@ Montgomery words (field/limb.py, FP_C); Z == 0 encodes the identity. The
 formulas are the a = 0 EFD ones, dbl-2009-l (7 products) and add-2007-bl
 (16), as in zolt_tpu/curve/device.py.
 
-`pt_add` and `pt_double` are the wrappers of kernel A (csrc/g1.cu, one
-thread a pair, branching on the identity, doubling and inverse cases): on
-CUDA tensors they launch it, or raise; on CPU tensors they run
-`pt_add_plain` and `pt_double_plain`, JAX's formulas with its select-based
-edge handling. Both give JAX's words for every input. Each wrapper counts
-its launches in `.counts`.
+`pt_add`, `pt_double` and `pt_sum` are the wrappers of kernel A
+(csrc/g1.cu: a thread a pair for the batch add and the doubling,
+branching on the identity, doubling and inverse cases, and the left fold
+of k arrays in one launch on `lanes_per_pair` lanes a pair): on CUDA
+tensors they launch it, or raise; on CPU tensors they run `pt_add_plain`,
+`pt_double_plain` and `pt_sum_plain`, JAX's formulas with its
+select-based edge handling. All give JAX's words for every input. Each
+wrapper counts its launches in `.counts`.
 
 The row MSM and the Pippenger (msm/) run these formulas inside their own
 kernels; the plain versions of those kernels call the plain functions here.
@@ -125,22 +127,25 @@ def _flat(pts, shape, dev) -> list[torch.Tensor]:
     return out
 
 
-def _launch(name: str, pts) -> tuple:
+def _launch(name: str, pts, out_shape, *extra) -> tuple:
+    """Kernel A's entry `name` on the CUDA word tensors `pts`, into three
+    new tensors of `out_shape`: name(*pts, *outs, points out, *extra,
+    stream)."""
     shape, dev = pts[0].shape, pts[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} has no kernel for device {dev}")
     if shape[-1] != 8:
         raise ValueError(f"{name} takes (..., 8) words, got {tuple(shape)}")
     ins = _flat(pts, shape, dev)
-    n = ins[0].shape[0]
-    outs = [torch.empty((n, 8), dtype=torch.int32, device=dev)
+    outs = [torch.empty(out_shape, dtype=torch.int32, device=dev)
             for _ in range(3)]
+    n = outs[0].numel() // 8
     with torch.cuda.device(dev):
         fn = getattr(_build.kernels().lib, name)
-        rc = fn(*[t.data_ptr() for t in ins + outs], n,
+        rc = fn(*[t.data_ptr() for t in ins + outs], n, *extra,
                 torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"{name} ({n} points)")
-    return tuple(o.view(shape) for o in outs)
+    _build.check(rc, f"{name} ({tuple(shape)} words in)")
+    return tuple(outs)
 
 
 def pt_add(pa, pb):
@@ -148,7 +153,7 @@ def pt_add(pa, pb):
     `pt_add_plain` on CPU tensors."""
     if pa[0].device.type == "cpu" and pb[0].device.type == "cpu":
         return pt_add_plain(pa, pb)
-    out = _launch("zg1_add", tuple(pa) + tuple(pb))
+    out = _launch("zg1_add", tuple(pa) + tuple(pb), pa[0].shape)
     pt_add.counts["launches"] += 1
     return out
 
@@ -158,13 +163,52 @@ def pt_double(pt):
     `pt_double_plain` on CPU tensors."""
     if pt[0].device.type == "cpu":
         return pt_double_plain(pt)
-    out = _launch("zg1_double", tuple(pt))
+    out = _launch("zg1_double", tuple(pt), pt[0].shape)
     pt_double.counts["launches"] += 1
     return out
 
 
 pt_add.counts = {"launches": 0}
 pt_double.counts = {"launches": 0}
+
+
+def pt_sum_plain(stack):
+    """The left fold ((s_0 + s_1) + s_2) + ... + s_{k-1} of a stacked
+    triple of (k, n, 8) words by `pt_add_plain`: the words of JAX's
+    fori_loop of pt_add over msm_mesh's gathered bucket arrays."""
+    acc = tuple(c[0] for c in stack)
+    for j in range(1, stack[0].shape[0]):
+        acc = pt_add_plain(acc, tuple(c[j] for c in stack))
+    return acc
+
+
+def lanes_per_pair(n: int) -> int:
+    """The lanes a pair takes in zg1_sum for a fold of n-point arrays: 8
+    up to 2048 points (msm_mesh's 8 windows a pass), else 4 (its 4096 and
+    8192 at 16 and 32). A step is 5 products deep at both (no layer of the
+    addition has more than four); few pairs on 8 lanes spread over twice
+    the SMs. From chip_smoke.py's lanes sweep on one H100 (PERF.md): 8
+    lanes at or below 4 at 2048 pairs, 4 fastest at 4096 and 8192."""
+    return 8 if n <= 2048 else 4
+
+
+def pt_sum(stack):
+    """The left fold of a stacked triple of (k, n, 8) words (k >= 1) over
+    its first axis -> (n, 8) words: kernel A's zg1_sum on CUDA tensors, in
+    one launch on `lanes_per_pair(n)` lanes a pair; `pt_sum_plain` on CPU
+    tensors."""
+    shape = stack[0].shape
+    if len(shape) != 3 or shape[0] < 1 or shape[2] != 8:
+        raise ValueError(f"pt_sum takes (k, n, 8) words, got {tuple(shape)}")
+    if stack[0].device.type == "cpu":
+        return pt_sum_plain(stack)
+    out = _launch("zg1_sum", tuple(stack), (shape[1], 8), shape[0],
+                  lanes_per_pair(shape[1]))
+    pt_sum.counts["launches"] += 1
+    return out
+
+
+pt_sum.counts = {"launches": 0}
 
 
 def add_work(pa, pb) -> tuple[int, int]:
@@ -185,6 +229,20 @@ def add_work(pa, pb) -> tuple[int, int]:
     gen = int(finite.sum()) - dbl - inv
     prods = dbl * (8 + 7) + inv * 14 + gen * 16
     return n * 96 * 3, prods * limb.MONT_IMADS
+
+
+def sum_work(stack) -> tuple[int, int]:
+    """Bytes and IMADs kernel A needs to fold these k arrays: each point
+    read once and the n sums written once; each step's products by the
+    case its inputs take (the running sum and the next array), as
+    `add_work` counts them."""
+    k, n = stack[0].shape[0], stack[0].shape[1]
+    acc, imads = tuple(c[0] for c in stack), 0
+    for j in range(1, k):
+        nxt = tuple(c[j] for c in stack)
+        imads += add_work(acc, nxt)[1]
+        acc = pt_add_plain(acc, nxt)
+    return (k + 1) * n * 96, imads
 
 
 def double_work(n: int) -> tuple[int, int]:

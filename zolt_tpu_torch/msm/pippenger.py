@@ -34,9 +34,9 @@ double-and-add below HOST_MAX points, else the native C MSM. `srs_msm`
 takes a KZG SRS's affine table from a cache instead of building it a
 call (HyperKZG). `msm_mesh` shards the points over a mesh
 (parallel/mesh.py): each shard's bucket sums by kernel C on its device,
-the shards' bucket arrays summed on the mesh's first device by kernel A
-(`curve/device.pt_add`, a ladder of n_dev − 1 launches), then kernel D
-and the host combine.
+the shards' bucket arrays folded on the mesh's first device by kernel A
+(`curve/device.pt_sum`, one launch a pass), then kernel D and the host
+combine.
 """
 
 from __future__ import annotations
@@ -377,11 +377,12 @@ def msm_mesh(mesh, points: list, scalars: list[int],
     [s·n/n_dev, (s+1)·n/n_dev) for every window. A pass of
     `windows_per_pass` windows: each shard's bucket plan and bucket sums
     (kernel C) on its device; the shards' (windows·256)-point bucket arrays
-    moved to mesh.devices[0] and summed there by a ladder of n_dev − 1
-    kernel A launches (Jacobian addition is not an integer sum, so this is
-    the EC counterpart of a psum); kernel D's window sums. Jacobian words
-    depend on the order of the adds, their points do not: compare results
-    in affine form."""
+    moved to mesh.devices[0], stacked, and folded there left to right by
+    one kernel A launch (`pt_sum`: Jacobian addition is not an integer
+    sum, so this is the EC counterpart of a psum; the stack's copy of the
+    arrays buys the one launch); a one-shard mesh's arrays are its sums
+    as they are; kernel D's window sums. Jacobian words depend on the order of the adds, their points do
+    not: compare results in affine form."""
     n = len(points)
     if n != len(scalars) or n == 0:
         raise ValueError(f"msm of {n} points and {len(scalars)} scalars")
@@ -397,11 +398,12 @@ def msm_mesh(mesh, points: list, scalars: list[int],
     totals: list = []
     for w0 in range(0, N_WINDOWS, windows_per_pass):
         wn = min(windows_per_pass, N_WINDOWS - w0)
-        acc = None
+        sums = []
         for p_s, v_s, d_s in shards:
             ent, seg = bucket_plan(d_s[:, w0:w0 + wn].contiguous())
-            b = tuple(c.to(dev0) for c in bucket_sums(ent, seg, p_s, v_s))
-            acc = b if acc is None else dev.pt_add(acc, b)
+            sums.append([c.to(dev0) for c in bucket_sums(ent, seg, p_s, v_s)])
+        acc = sums[0] if len(sums) == 1 else \
+            dev.pt_sum(tuple(torch.stack(c) for c in zip(*sums)))
         totals.extend(dev.to_affine_host(window_sums(*acc)))
     return _combine(totals)
 
