@@ -38,32 +38,44 @@ Phases, one status line each; the first failure ends the run non-zero:
 4. slice: the sum-loop guest (the repo bench's guest) at T = 2^log_t.
    prove_jolt with its defaults (backend="device", device="cuda") with the
    host tail pinned to 0, so every sumcheck round of stages 1-4 runs on the
-   GPU, with its peak device memory; the same prove again under
-   torch.profiler, which counts the kernels on the device: its counts
-   must equal the wrappers' (no zfr_reduce_partials may run, and the
-   fold may take no group beyond the product engines' evaluated groups:
-   the outer-round engines fold in the Gruen round's pass; with --profile
-   also under cProfile); the host-tier prove (backend="host"); the device prove at
-   the default tail. The three unprofiled proofs must be equal, and at
+   GPU, with its peak device memory, under torch.profiler, which counts
+   the kernels on the device: its counts must equal the wrappers' (no
+   zfr_reduce_partials may run, and the fold may take no group beyond
+   the product engines' evaluated groups: the outer-round engines fold in
+   the Gruen round's pass; with --profile also under cProfile); then the
+   device prove at the default tail, whose proof must equal it. At
    T = 2^16 their sha256 must equal the digest the JAX package (zolt_tpu)
    computes for the same guest on the CPU. Every kernel of PROVE_PATH
    (the Fr kernels and the row MSM, which commits the small-scalar polys)
-   must have launched during the tail-0 device prove, and none during
-   the host-tier prove. Each Fr kernel's path bound is the bound of the
-   bytes and IMADs its wrapper counted over that prove.
+   must have launched during the tail-0 device prove. Each Fr kernel's
+   path bound is the bound of the bytes and IMADs its wrapper counted
+   over that prove. Then the host tier (backend="host") at T = 2^12
+   beside the tail-0 device prove of that size: equal bytes, and no
+   kernel launched on the host tier.
 5. sound: the same guest with sound=True (stages 1-12 and the PCS batch
    opening): prove_jolt's defaults with the tail at 0, timed, with its
    peak device memory, its per-stage seconds (stage5, stage6, stage7,
    stages8_12, batch_opening beside the others) and the wrappers' launch
    and group counts for the whole prove and for its batch opening alone;
-   then the host tier. The two proofs must be equal, and at T = 2^16 equal
-   the JAX package's sound digest. Every kernel of PROVE_PATH must have
-   launched in the sound prove (none in the host-tier one), and the fold
-   and the k = 2 product evals in its batch
-   opening, at no more than 16 groups a launch. With --profile, one more
+   at T = 2^16 its sha256 must equal the JAX package's sound digest.
+   Every kernel of PROVE_PATH must have launched in it, and the fold and
+   the k = 2 product evals in its batch opening, at no more than 16
+   groups a launch. Then the host tier at T = 2^12 with the joint proof,
+   as the CLI proves: its sha256 must equal JAX_CLI_SOUND_DIGEST_T12,
+   and it may launch no kernel. With --profile, one more
    tail-0 sound prove under torch.profiler (device busy, and the batch
    opening's device ms by its record_function range) and cProfile, written
    to PROFILE_sound.txt.
+
+After phase 3, field: kernel F (csrc/field_inv.cu) against its plain
+versions and Python's pow over Fr and Fp: batch_inverse at 2^16 entries
+(a tenth zero), at n = 1 and at an odd n, pow_fixed with a short exponent
+and with no bits; batch_inverse and inverse (pow_fixed over p - 2) at
+2^16 timed as in phase 3. Then the bench's field section
+(benchmarks.run_benchmarks, quick) with the counts at 0: F must launch
+there (its path launches); then the bench's chipcheck, every
+hand-written kernel against its plain version at a small size. The
+phase's seconds are printed.
 
 Between phases 3 and 4, g1: the G1 kernels (csrc/g1.cu, rows_msm.cu,
 pippenger.cu) against their plain versions on the same CUDA tensors and
@@ -106,7 +118,8 @@ After phase 5:
    backend (the GPU; the host tail pinned to 0 as in phases 4-5), on the
    sum-loop guest at T = 2^12: every kernel of PROVE_PATH must launch, and
    the file's sha256 must equal JAX_CLI_SOUND_DIGEST_T12 (the JAX
-   package's CLI on the host tier). Then, each in a process of its own,
+   package's CLI on the host tier). Then, each in a process of its own
+   (all of them side by side, after the in-process proves),
    `python3 -m zolt_tpu_torch verify <file> --elf <elf>` must exit 0 with
    PASSED, a copy with one byte flipped must exit 1 with FAILED, and
    `python3 -m zolt_tpu_torch info` must name the card. The internal and
@@ -119,7 +132,7 @@ After phase 5:
    (PASSED, and the stats lines), and the internal file with a byte of a
    stage-1 round poly flipped must exit 1 with FAILED.
 8. commit: the commitment phase alone (`commit_and_absorb`) in each mode
-   on the device tier and the host C tier in three alternating pairs, its
+   on the device tier and the host C tier in one pair, its
    seconds split into the row MSMs and the pairings, the commitments
    equal; a first device commit gives kernel B's work in the phase alone
    and each of its launches' ms by CUDA events beside the launches
@@ -155,12 +168,16 @@ After phase 5:
    prefixes and kernel A's fold run on it (the same code puts a shard on
    each of cuda:0..7). sharded_sumcheck_prove at 2^16, k = 3, tail 0: its
    round evals, challenges, finals and transcript equal to the
-   single-device engine's on the same tables. prove_jolt(elf, backend="mesh") of the
-   sum-loop guest at T = 2^log_t, tail 0, compat and sound, each timed
-   beside the device prove of phases 4-5, its bytes equal to that prove's
-   and at T = 2^16 to JAX_DIGEST_T16 / JAX_SOUND_DIGEST_T16, with its peak
-   device memory and each kernel's launches, path bound and device ms by
-   CUDA events; every kernel of MESH_PATH must launch. msm_mesh at 2^16:
+   single-device engine's on the same tables. prove_jolt(elf,
+   backend="mesh") of the sum-loop guest at T = 2^12, tail 0: compat, its
+   bytes equal to the device and host tiers' of phase 4, and sound with
+   the joint proof, its sha256 equal to JAX_CLI_SOUND_DIGEST_T12; each
+   timed beside the device prove of that size (phase 4's, and the CLI's
+   of phase 7), with its peak device memory and each kernel's launches,
+   path bound and device ms by CUDA events; every kernel of MESH_PATH
+   must launch (kernel B in the sound prove only: the compat prove's
+   polys at T = 2^12 are below DEVICE_COMMIT_MIN and commit on the host
+   tier). msm_mesh at 2^16:
    affine equal to the native C MSM, C, D and A's fold launched (one fold
    of the shards' bucket arrays a pass, 4 launches; its batch add none),
    A's launches timed by CUDA events beside their bound, each launch's
@@ -169,9 +186,15 @@ After phase 5:
    --stage1-backend mesh` at T = 2^12 on make_mesh() (every CUDA device),
    tail 0: both files' sha256 equal to JAX_CLI_SOUND_DIGEST_T12.
 
+The seconds of each phase are printed before the last lines. The time
+limit of a run is 1200 s: the T = 2^16 proves are the compat prove at
+tail 0 and at the default tail, the sound prove, and those of the
+legacy and internal provers; the host tier and the mesh prove at
+T = 2^12.
+
 The last three lines are the kernels' JSON (every kernel, with each
-path's launches and figures), the nvidia-smi card line and the result
-JSON.
+path's launches and figures; F's path is the bench's field section), the
+nvidia-smi card line and the result JSON.
 """
 
 from __future__ import annotations
@@ -261,6 +284,12 @@ G1_KERNELS = [
     ("scalar_digits", "zolt_tpu_torch/csrc/pippenger.cu",
      "zolt_tpu/pcs/hyperkzg.py:50 and zolt_tpu/msm/pippenger.py:45 "
      "(decode and _digits, on the host)"),
+]
+# Kernel F: (name, source, the JAX code it replaces: XLA, not Pallas).
+F_KERNELS = [
+    ("field_inv", "zolt_tpu_torch/csrc/field_inv.cu",
+     "zolt_tpu/field/limb.py:291,311,317 (mont_pow_fixed, inverse, "
+     "batch_inverse)"),
 ]
 # The kernels a prove must launch on its device path.
 PROVE_PATH = ("fold", "product_evals_k2", "product_evals_k3", "gruen_round",
@@ -357,21 +386,17 @@ def device_ms(torch, fn, iters: int, name: str | None = None) -> float:
     return device_us(rows) / 1e3 / iters
 
 
-# The card's peaks for the bounds (H100 SXM, 700 W): HBM3 3.35 TB/s (the
-# data sheet); int32 multiply-adds at 132 SMs x 64 IMAD/clk (CUDA's
-# throughput table for compute capability 9.0) x 1.98 GHz.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-
-
 def bound(nbytes: int, imads: int) -> tuple[float, str]:
     """The least time (ms) the card could take: the bytes moved once at the
-    HBM rate or the IMADs at the integer peak, whichever is longer. The
-    wrappers count both (`work` in field/fold.py, evals.py, gruen.py; a
-    32x32-bit word product is two IMADs)."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = imads / IMAD_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    HBM rate or the IMADs at the integer peak, whichever is longer
+    (zolt_tpu_torch/benchmarks.py bound_s: H100 SXM, 700 W, 3.35 TB/s and
+    132 SMs x 64 IMAD/clk x 1.98 GHz). The wrappers count both (`work` in
+    field/fold.py, evals.py, gruen.py; a 32x32-bit word product is two
+    IMADs)."""
+    from zolt_tpu_torch.benchmarks import bound_s
+
+    sec, by = bound_s(nbytes, imads)
+    return sec * 1e3, by
 
 
 def timings(torch, stats: dict, name: str, kernel, plain, nbytes: int,
@@ -811,6 +836,113 @@ def schedule_sweep(torch, gen, stats: dict) -> None:
 # ---------------------------------------------------------------------------
 # G1: kernels A-D, the commitments' two tiers, HyperKZG
 # ---------------------------------------------------------------------------
+
+# Kernel F at the bench field section's full size, 2^16 entries.
+FIELD_LOG_N = 16
+F_POW_BITS = (1, 0, 0, 1, 1, 0, 1)       # a short exponent, 0b1011001
+
+
+def field_words(torch, gen, n: int):
+    """(n, 8) random canonical words of Fr and of Fp (below 2^253), a tenth
+    of them zero (every tenth, from the first)."""
+    w = rand_tables(torch, gen, 1, n, n)[0]
+    w[::10] = 0
+    return w.contiguous()
+
+
+def run_field(torch) -> dict:
+    """Kernel F (csrc/field_inv.cu) against its plain versions and Python's
+    pow, over Fr and Fp: batch_inverse at 2^16 entries, a tenth zero (each
+    product x·y checked to be 1, which pins y to pow(x, p − 2, p); Python's
+    pow itself on the first 4099), at n = 1 and at an odd n; pow_fixed
+    with a short exponent and with no bits (one). Times batch_inverse at 2^16 over Fr (CUDA events, the
+    device alone by torch.profiler, the bound of the work this input
+    needs, the plain version), and inverse (pow_fixed over p - 2) there.
+    Then the path: the bench's field section (quick, n = 2^12) with the
+    counts at 0, whose batch_inverse launches are F's path launches, and
+    the bench's chipcheck (every hand-written kernel against its plain
+    version at a small size). Returns the figures."""
+    from zolt_tpu_torch import benchmarks
+    from zolt_tpu_torch.field import inverse, limb
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261018)
+    n = 1 << FIELD_LOG_N
+    err = 0
+    for f in (limb.FR_C, limb.FP_C):
+        p = f.params.p
+        a = field_words(torch, gen, n)
+        got = limb.batch_inverse(a, f)
+        err = max(err, max_abs(torch, got, inverse.batch_inverse_plain(a, f)))
+        vals = limb.decode(a, f)
+        # x·y = 1 pins y to pow(x, p - 2, p), the one inverse below p, at a
+        # microsecond an entry (a Python pow takes some 100 µs)
+        if not all(w == 0 if v == 0 else v * w % p == 1
+                   for v, w in zip(vals, limb.decode(got, f))):
+            raise AssertionError(f"batch_inverse ({f.name}, 2^{FIELD_LOG_N}) "
+                                 f"is not the inverse")
+        for m in (1, 4099):
+            got = limb.decode(limb.batch_inverse(a[:m], f), f)
+            if got != [pow(v, p - 2, p) for v in vals[:m]]:
+                raise AssertionError(f"batch_inverse ({f.name}, n = {m}) "
+                                     f"differs from Python's pow")
+        small = a[:4099]
+        for bits in (F_POW_BITS, ()):
+            e = sum(b << i for i, b in enumerate(bits))
+            got = limb.mont_pow_fixed(small, bits, f)
+            err = max(err, max_abs(torch, got,
+                                   inverse.pow_fixed_plain(small, bits, f)))
+            if limb.decode(got, f) != [pow(v, e, p) for v in vals[:4099]]:
+                raise AssertionError(f"pow_fixed ({f.name}, e = {e}) "
+                                     f"differs from Python's pow")
+    if err:
+        raise AssertionError(f"kernel F differs from its plain version: {err}")
+    say("field", f"kernel F exact (max_abs_err 0) vs plain: batch_inverse "
+                 f"over Fr and Fp at 2^{FIELD_LOG_N} (a tenth zero; x·y = 1 "
+                 f"on every entry, Python's pow on the first 4099), n = 1 "
+                 f"and 4099; pow_fixed with {len(F_POW_BITS)} bits and with "
+                 f"none (Python's pow)")
+    stats: dict = {}
+    a = field_words(torch, gen, n)
+    nonzero = int((a != 0).any(dim=1).sum().item())
+    timings(torch, stats, "field_inv", lambda: limb.batch_inverse(a),
+            lambda: inverse.batch_inverse_plain(a, limb.FR_C),
+            *inverse.inverse_work(n, nonzero, limb.FR_C),
+            f"batch_inverse, Fr, 2^{FIELD_LOG_N} entries ({nonzero} non-zero), "
+            f"chunks of {inverse.chunk_of(n)}", err, plain_iters=1,
+            phase="field", device_name="batch_inverse_kernel")
+    bits = limb.FR_C.p_minus_2_bits
+    timings(torch, stats, "field_inv_pow", lambda: limb.inverse(a),
+            lambda: inverse.pow_fixed_plain(a, bits, limb.FR_C),
+            *inverse.pow_work(n, bits),
+            f"inverse (pow_fixed, p - 2), Fr, 2^{FIELD_LOG_N} entries", err,
+            plain_iters=1, phase="field", device_name="pow_kernel")
+    checked_s = time.perf_counter() - t0
+
+    lines: list[str] = []
+    reset_launches()
+    t1 = time.perf_counter()
+    benchmarks.run_benchmarks(sections=["field"], quick=True,
+                              report=lines.append)
+    bench_s = time.perf_counter() - t1
+    launches, _ = read_launches()
+    if launches["field_inv"] <= 0:
+        raise AssertionError("the bench's field section did not launch "
+                             "kernel F")
+    for ln in lines:
+        say("field", f"bench: {ln}")
+    t2 = time.perf_counter()
+    benchmarks.run_benchmarks(sections=["chipcheck"], quick=True,
+                              report=lambda ln: say("field", f"bench: {ln}"))
+    chipcheck_s = time.perf_counter() - t2
+    secs = dict(checks=round(checked_s, 3), bench_field=round(bench_s, 3),
+                chipcheck=round(chipcheck_s, 3),
+                phase=round(time.perf_counter() - t0, 3))
+    say("field", f"kernel F launched {launches['field_inv']} times in the "
+                 f"bench's field section; seconds {secs}")
+    return dict(stats=stats, launches=launches, seconds=secs)
+
 
 def jac_words(points, lams):
     """Host affine points (None: the identity, (0, 1, 0)) as a Jacobian
@@ -1463,13 +1595,13 @@ def path_density(torch, caught: list, mode: str) -> list:
     return out
 
 
-def commit_pairs(torch, log_t: int, pairs: int = 3) -> dict:
-    """The commitment phase alone, on the device tier (kernel B) and on the
-    host C tier in alternating pairs, in both modes, with its seconds split
+def commit_pairs(torch, log_t: int) -> dict:
+    """The commitment phase alone, on the device tier (kernel B) and then
+    on the host C tier, in both modes, with its seconds split
     into the row MSMs and the pairings; the commitments must be equal. A
     first device commit of each mode builds the engine and gives kernel
     B's work in the phase (its wrapper's counters) and its device ms
-    (torch.profiler); it is not timed in the pairs."""
+    (torch.profiler); it is not timed beside them."""
     from torch.profiler import ProfilerActivity, profile
 
     from zolt_tpu_torch.transcript import Blake2bTranscript
@@ -1512,13 +1644,12 @@ def commit_pairs(torch, log_t: int, pairs: int = 3) -> dict:
                           f"{sum(ev):.4f}); torch.profiler recorded "
                           f"{len(seen)} (start µs, device µs) {seen}")
             runs = []
-            for i in range(pairs):
-                for tier in (("cuda", None) if i % 2 == 0 else (None, "cuda")):
-                    coms, t = commit(tier)
-                    if coms != first:
-                        raise AssertionError(f"{mode} commitments differ "
-                                             f"between the tiers")
-                    runs.append(dict(tier="device" if tier else "host", **t))
+            for tier in ("cuda", None):
+                coms, t = commit(tier)
+                if coms != first:
+                    raise AssertionError(f"{mode} commitments differ "
+                                         f"between the tiers")
+                runs.append(dict(tier="device" if tier else "host", **t))
             b_ms, b_by = bound(work["bytes"], work["imads"])
             out[mode] = dict(first_device=first_t, pairs=runs, work=work,
                              bound_ms=b_ms, bound_by=b_by,
@@ -1582,11 +1713,10 @@ def timed_prove(torch, path: str, **kw):
 
 
 def profiled_prove(torch, path: str, out: str | None):
-    """One more tail-0 device prove under torch.profiler (device time by
-    kernel), and under cProfile (host time by function) when `out` is
-    given, which then writes out.txt. Returns the kernels' launches and
-    device ms seen on the device by name, and the wrappers' launch counts
-    in this prove."""
+    """timed_prove(path) under torch.profiler (device time by kernel), and
+    under cProfile (host time by function) when `out` is given, which then
+    writes out.txt. Returns timed_prove's four values, then the kernels'
+    launches and device ms seen on the device by name."""
     import cProfile
     import io
     import pstats
@@ -1594,19 +1724,17 @@ def profiled_prove(torch, path: str, out: str | None):
     from torch.profiler import ProfilerActivity, profile
 
     cp = cProfile.Profile()
-    reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as p:
         if out:
             cp.enable()
-        _, wall, stages, _ = timed_prove(torch, path)
+        blob, wall, stages, canonical = timed_prove(torch, path)
         if out:
             cp.disable()
-    _, counts = read_launches()
     rows = p.key_averages()
     busy_us = device_us(rows)
-    say("slice", f"profiled device prove (tail 0, under torch.profiler"
-                 f"{' and cProfile' if out else ''}): {wall:.3f} s, device "
-                 f"busy {busy_us / 1e3:.3f} ms")
+    say("slice", f"the device prove under torch.profiler"
+                 f"{' and cProfile' if out else ''}: device busy "
+                 f"{busy_us / 1e3:.3f} ms")
     if out:
         host = io.StringIO()
         pstats.Stats(cp, stream=host).sort_stats("cumulative").print_stats(60)
@@ -1620,13 +1748,13 @@ def profiled_prove(torch, path: str, out: str | None):
     on_dev, dev_ms = device_kernel_counts(rows)
     say("slice", f"the kernels in the profiled prove: launches {on_dev}, "
                  f"device ms {dev_ms}")
-    return on_dev, dev_ms, counts
+    return blob, wall, stages, canonical, on_dev, dev_ms
 
 
 def counters() -> dict:
     """The wrappers' counter dicts by kernel."""
     from zolt_tpu_torch.curve import device as dev
-    from zolt_tpu_torch.field import evals, fold, gruen
+    from zolt_tpu_torch.field import evals, fold, gruen, inverse
     from zolt_tpu_torch.msm import pippenger, rows_device
 
     return {"fold": fold.fold_many.counts,
@@ -1637,7 +1765,9 @@ def counters() -> dict:
             "row_plane_sums": rows_device.row_sums.counts,
             "bucket_accumulate": pippenger.bucket_sums.counts,
             "window_sums": pippenger.window_sums.counts,
-            "scalar_digits": pippenger.scalar_digits.counts}
+            "scalar_digits": pippenger.scalar_digits.counts,
+            "pow_fixed": inverse.pow_fixed.counts,
+            "batch_inverse": inverse.batch_inverse.counts}
 
 
 def reset_launches() -> None:
@@ -1659,7 +1789,9 @@ def entry_launches(c: dict) -> dict:
             "g1_sum": c["g1_sum"]["launches"],
             **{k: c[k]["launches"] for k in ("row_plane_sums",
                                              "bucket_accumulate",
-                                             "window_sums", "scalar_digits")}}
+                                             "window_sums", "scalar_digits")},
+            "field_inv": (c["pow_fixed"]["launches"]
+                          + c["batch_inverse"]["launches"])}
 
 
 def read_launches() -> tuple[dict, dict]:
@@ -1879,13 +2011,14 @@ def run_sound(torch, log_t: int,
     prove_jolt's defaults at tail 0 (every round of stages 1-4 and of the
     batch opening on the GPU), timed, with its peak device memory and the
     wrappers' counts for the whole prove and for the batch opening alone;
-    and on the host tier. The two proofs must be equal, and at T = 2^16
-    equal the JAX sound digest. Every kernel must have launched in the
-    sound prove, and the fold and the k = 2 product evals in its batch
-    opening, at no more than 16 groups a launch. With --profile, one more
-    tail-0 sound prove under torch.profiler and cProfile. Returns the
-    launches per JSON entry, the path figures and the tail-0 proof's
-    canonical bytes."""
+    at T = 2^16 its bytes must equal the JAX sound digest. Every kernel
+    must have launched in it, and the fold and the k = 2 product evals in
+    its batch opening, at no more than 16 groups a launch. The host tier
+    proves the guest at T = 2^CLI_LOG_T with the joint proof, as the CLI
+    does: its bytes must equal the JAX CLI's digest, and it may launch no
+    kernel. With --profile, one more tail-0 sound prove under
+    torch.profiler and cProfile. Returns the launches per JSON entry, the
+    path figures and the tail-0 proof's canonical bytes."""
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "sum_loop.elf")
         with open(path, "wb") as f:
@@ -1916,12 +2049,19 @@ def run_sound(torch, log_t: int,
                 prof = profiled_sound_prove(torch, path, profile + "_sound")
         finally:
             del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+        # the host tier at the CLI's size and flags (the joint proof), so
+        # that its bytes meet the JAX CLI's digest
+        small = os.path.join(td, f"sum_loop_t{CLI_LOG_T}.elf")
+        with open(small, "wb") as f:
+            f.write(sum_loop_elf(CLI_LOG_T))
         reset_launches()
-        host, host_s, host_stages, _ = timed_prove(torch, path, sound=True,
-                                                   backend="host")
+        host, host_s, host_stages, _ = timed_prove(
+            torch, small, sound=True, with_joint_proof=True, backend="host")
         host_launches, _ = read_launches()
-        say("sound", f"sound host-tier prove: {host_s:.3f} s {host_stages}; "
-                     f"launches {host_launches}")
+        host_digest = hashlib.sha256(host).hexdigest()
+        say("sound", f"sound host-tier prove at T = 2^{CLI_LOG_T} (with the "
+                     f"joint proof, as the CLI): {host_s:.3f} s "
+                     f"{host_stages}; launches {host_launches}")
 
     idle = [k for k in PROVE_PATH if launches[k] <= 0]
     if idle:
@@ -1945,19 +2085,21 @@ def run_sound(torch, log_t: int,
     figures.update(seconds=dev_s, host_seconds=host_s, stages=stages,
                    peak_bytes=peak, busy_ms=prof and prof["busy_ms"],
                    bo_launches=entry_launches(bo))
+    if host_digest != JAX_CLI_SOUND_DIGEST_T12:
+        raise AssertionError(f"the host tier's sound proof sha256 "
+                             f"{host_digest} != {JAX_CLI_SOUND_DIGEST_T12}")
     digest = hashlib.sha256(dev).hexdigest()
-    if dev != host:
-        raise AssertionError("sound device proof differs from the host tier's")
     if log_t == 16:
         if digest != JAX_SOUND_DIGEST_T16:
             raise AssertionError(f"sound proof sha256 {digest} != JAX sound "
                                  f"digest {JAX_SOUND_DIGEST_T16}")
-        say("sound", f"{len(dev)} sound proof bytes equal on the device and "
-                     f"the host tier; sha256 {digest} equals the JAX sound "
-                     f"digest")
+        say("sound", f"{len(dev)} sound proof bytes; sha256 {digest} equals "
+                     f"the JAX sound digest; the host tier's at "
+                     f"T = 2^{CLI_LOG_T} equal the JAX CLI's")
     else:
-        say("sound", f"{len(dev)} sound proof bytes equal; sha256 {digest} "
-                     f"(no JAX digest for T = 2^{log_t})")
+        say("sound", f"{len(dev)} sound proof bytes; sha256 {digest} (no JAX "
+                     f"digest for T = 2^{log_t}); the host tier's at "
+                     f"T = 2^{CLI_LOG_T} equal the JAX CLI's")
     return launches, figures, canonical
 
 
@@ -2007,9 +2149,12 @@ def profiled_sound_prove(torch, path: str, out: str) -> dict:
 
 def run_slice(torch, log_t: int,
               profile: str | None) -> tuple[dict, dict, bytes]:
-    """The four proves; returns the launches per JSON entry, the path
-    figures per kernel (launches, bound over the counted work, device ms)
-    and the tail-0 proof's canonical bytes."""
+    """The tail-0 device prove under torch.profiler, the device prove at
+    the default tail, and the host tier's pair at T = 2^CLI_LOG_T; returns
+    the launches per JSON entry, the path figures per kernel (launches,
+    bound over the counted work, device ms, and the small pair's seconds
+    and canonical bytes under "small") and the tail-0 proof's canonical
+    bytes."""
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "sum_loop.elf")
         with open(path, "wb") as f:
@@ -2020,26 +2165,25 @@ def run_slice(torch, log_t: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with launch_events(torch, "zg1_row_msm") as b_ev:
-            dev, dev_s, dev_stages, canonical = timed_prove(torch, path)
+            dev, dev_s, dev_stages, canonical, on_dev, dev_ms = \
+                profiled_prove(torch, path, profile)
         peak = torch.cuda.max_memory_allocated()
         launches, work = read_launches()
         say("slice", f"kernel B in the device prove by CUDA events: {b_ev} "
                      f"ms, sum {sum(b_ev):.4f}")
         say("slice", f"device prove (defaults: backend 'device', 'cuda'), "
-                     f"tail 0: {dev_s:.3f} s {dev_stages}; peak device "
-                     f"memory {peak} bytes ({peak / 2 ** 20:.1f} MiB)")
+                     f"tail 0, under torch.profiler: {dev_s:.3f} s "
+                     f"{dev_stages}; peak device memory {peak} bytes "
+                     f"({peak / 2 ** 20:.1f} MiB)")
         say("slice", f"launches on the main path: {launches}; counters: "
                      f"{work}")
-        on_dev, dev_ms, prof = profiled_prove(torch, path, profile)
         if on_dev["reduce_partials"]:
             raise AssertionError("a zfr_reduce_partials pass ran on the path")
         for k in ("fold", "product_evals", "gruen_round", "row_plane_sums"):
-            if not (on_dev[k] == prof[k]["launches"]
-                    == work[k]["launches"]):
+            if on_dev[k] != work[k]["launches"]:
                 raise AssertionError(
                     f"{k} launches: the profiler saw {on_dev[k]}, the "
-                    f"wrapper counted {prof[k]['launches']} there and "
-                    f"{work[k]['launches']} in the timed prove")
+                    f"wrapper counted {work[k]['launches']}")
         # every product engine folds each group it evaluated once (its
         # last bind flushed before its finals); a fold from an outer-round
         # engine would add groups
@@ -2057,40 +2201,57 @@ def run_slice(torch, log_t: int,
         path_stats["peak_bytes"] = peak
         path_stats["seconds"] = dev_s
         path_stats["row_plane_sums"]["device_ms_events"] = round(sum(b_ev), 4)
-
-        reset_launches()
-        host, host_s, host_stages, _ = timed_prove(torch, path,
-                                                   backend="host")
-        host_launches, _ = read_launches()
-        say("slice", f"host-tier prove: {host_s:.3f} s {host_stages}; "
-                     f"launches {host_launches}")
-        if any(host_launches.values()):
-            raise AssertionError(f"the host-tier prove launched kernels: "
-                                 f"{host_launches}")
         del os.environ["ZOLT_TPU_DEVICE_TAIL"]
         dflt, dflt_s, dflt_stages, _ = timed_prove(torch, path)
         say("slice", f"device prove, default tail (8192): {dflt_s:.3f} s "
                      f"{dflt_stages}")
+    path_stats["small"] = host_pair(torch)
 
     digest = hashlib.sha256(dev).hexdigest()
-    if dev != host:
-        raise AssertionError("device proof bytes differ from the host tier's")
-    if dflt != host:
-        raise AssertionError("default-tail device proof differs from host")
+    if dflt != dev:
+        raise AssertionError("default-tail device proof differs from tail 0's")
     if log_t == 16:
         if digest != JAX_DIGEST_T16:
             raise AssertionError(f"proof sha256 {digest} != JAX digest "
                                  f"{JAX_DIGEST_T16}")
-        say("slice", f"{len(dev)} proof bytes equal across the three "
-                     f"proves; sha256 {digest} equals the JAX digest")
+        say("slice", f"{len(dev)} proof bytes equal at both tails; sha256 "
+                     f"{digest} equals the JAX digest")
     else:
-        say("slice", f"{len(dev)} proof bytes equal across the three "
-                     f"proves; sha256 {digest} (no JAX digest for "
-                     f"T = 2^{log_t})")
+        say("slice", f"{len(dev)} proof bytes equal at both tails; sha256 "
+                     f"{digest} (no JAX digest for T = 2^{log_t})")
     idle = [k for k in PROVE_PATH if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     return launches, path_stats, canonical
+
+
+def host_pair(torch) -> dict:
+    """The host tier (backend="host") at T = 2^CLI_LOG_T beside the device
+    prove at tail 0, compat: equal bytes, and no kernel launched on the
+    host tier. Returns both proves' seconds and the canonical bytes."""
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, f"sum_loop_t{CLI_LOG_T}.elf")
+        with open(path, "wb") as f:
+            f.write(sum_loop_elf(CLI_LOG_T))
+        os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+        try:
+            dev, dev_s, _, canonical = timed_prove(torch, path)
+        finally:
+            del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+        reset_launches()
+        host, host_s, host_stages, _ = timed_prove(torch, path,
+                                                   backend="host")
+        host_launches, _ = read_launches()
+    if any(host_launches.values()):
+        raise AssertionError(f"the host-tier prove launched kernels: "
+                             f"{host_launches}")
+    if dev != host:
+        raise AssertionError(f"the device proof at T = 2^{CLI_LOG_T} differs "
+                             f"from the host tier's")
+    say("slice", f"host-tier prove at T = 2^{CLI_LOG_T}: {host_s:.3f} s "
+                 f"{host_stages}, no launch; {len(host)} bytes equal to the "
+                 f"tail-0 device prove's ({dev_s:.3f} s)")
+    return {"seconds": dev_s, "host_seconds": host_s, "canonical": canonical}
 
 
 def run_verify(log_t: int, compat: bytes, sound: bytes) -> dict:
@@ -2210,11 +2371,15 @@ def run_cli(torch, root: str) -> dict:
         with open(bad, "wb") as f:
             f.write(blob[:24] + bytes([blob[24] ^ 1]) + blob[25:])
 
+        jobs = []
+
         def cli(name: str, *argv: str, rc: int, want: str,
                 then: tuple = (), then_want: str = "") -> None:
             """`python3 -m zolt_tpu_torch *argv` in a subprocess; with
             `then`, that command's main(argv) and then main(then) in one
-            subprocess (one interpreter and torch import for both)."""
+            subprocess (one interpreter and torch import for both). Queued
+            here; finish_cli() runs them all side by side, after the
+            in-process proves, and checks each."""
             cmd = [sys.executable, "-m", "zolt_tpu_torch", *argv]
             if then:
                 cmd = [sys.executable, "-c",
@@ -2222,17 +2387,40 @@ def run_cli(torch, root: str) -> dict:
                        "from zolt_tpu_torch.__main__ import main\n"
                        f"sys.exit(main({list(argv)!r}) or "
                        f"main({list(then)!r}))\n"]
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                               timeout=600)
-            secs[name] = round(time.perf_counter() - t0, 4)
-            said = r.stdout.strip()
-            if r.returncode != rc or want not in said or then_want not in said:
-                raise AssertionError(f"python3 -m zolt_tpu_torch {name}: "
-                                     f"exit {r.returncode}, stdout {said!r}, "
-                                     f"stderr {r.stderr[-2000:]!r}")
-            say("cli", f"python3 -m zolt_tpu_torch {name}: exit "
-                       f"{r.returncode} in {secs[name]} s: {said}")
+            jobs.append((name, cmd, rc, want, then_want))
+
+        def finish_cli() -> None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            procs = []
+
+            def run(cmd: list) -> tuple:
+                t0 = time.perf_counter()
+                proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                procs.append(proc)
+                stdout, stderr = proc.communicate(timeout=600)
+                return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+            try:
+                with ThreadPoolExecutor(len(jobs)) as pool:
+                    done = list(pool.map(run, [job[1] for job in jobs]))
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            for (name, _, rc, want, then_want), (got, stdout, stderr, t) in \
+                    zip(jobs, done):
+                secs[name] = round(t, 4)
+                said = stdout.strip()
+                if got != rc or want not in said or then_want not in said:
+                    raise AssertionError(
+                        f"python3 -m zolt_tpu_torch {name}: exit {got}, "
+                        f"stdout {said!r}, stderr {stderr[-2000:]!r}")
+                say("cli", f"python3 -m zolt_tpu_torch {name}: exit {got} in "
+                           f"{secs[name]} s (side by side with the others): "
+                           f"{said}")
 
         cli("verify", "verify", out, "--elf", elf, rc=0, want="PASSED")
         cli("verify_flipped", "verify", bad, "--elf", elf, rc=1,
@@ -2279,6 +2467,7 @@ def run_cli(torch, root: str) -> dict:
             f.write(blob[:CLI_STAGE1_BYTE] + bytes([blob[CLI_STAGE1_BYTE] ^ 1])
                     + blob[CLI_STAGE1_BYTE + 1:])
         cli("verify_internal_flipped", "verify", bad, rc=1, want="FAILED")
+        finish_cli()
     return {"launches": launches, "seconds": secs,
             "containers": container_launches}
 
@@ -2642,24 +2831,26 @@ def mesh_sumcheck(torch, mesh) -> dict:
             "launches": launches}
 
 
-def mesh_proves(torch, mesh, log_t: int, device_s: dict,
-                canonical: dict) -> dict:
+def mesh_proves(torch, mesh, device_s: dict, canonical: bytes) -> dict:
     """prove_jolt(elf, backend="mesh", mesh=mesh) of the sum-loop guest at
-    T = 2^log_t, tail 0, compat and sound: each timed beside the device
-    prove of phases 4-5 (`device_s`), its canonical bytes equal to that
-    prove's (`canonical`) and, at T = 2^16, its sha256 to the JAX digest;
-    its peak device memory, each kernel's launches, path bound and device
-    ms by CUDA events around each launch. Every kernel of MESH_PATH must
-    launch."""
+    T = 2^CLI_LOG_T, tail 0: compat, its canonical bytes equal to the
+    device and host tiers' (`canonical`, the slice phase's pair), and
+    sound with the joint proof, as the CLI proves, its sha256 equal to
+    the JAX CLI's digest; each timed beside the device prove of the same
+    size and flags (`device_s`), with its peak device memory, each
+    kernel's launches, path bound and device ms by CUDA events around each
+    launch. Every kernel of MESH_PATH must launch, but kernel B in the
+    compat prove, whose polys at this size commit on the host tier."""
+    from zolt_tpu_torch.zkvm.commitments import DEVICE_COMMIT_MIN
+
     out = {}
     with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "sum_loop.elf")
+        path = os.path.join(td, f"sum_loop_t{CLI_LOG_T}.elf")
         with open(path, "wb") as f:
-            f.write(sum_loop_elf(log_t))
+            f.write(sum_loop_elf(CLI_LOG_T))
         os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
         try:
-            for mode, sound, want in (("compat", False, JAX_DIGEST_T16),
-                                      ("sound", True, JAX_SOUND_DIGEST_T16)):
+            for mode, sound in (("compat", False), ("sound", True)):
                 reset_launches()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -2667,27 +2858,34 @@ def mesh_proves(torch, mesh, log_t: int, device_s: dict,
                     ev = {k: st.enter_context(launch_events(torch, e))
                           for k, e in MESH_ENTRIES.items()}
                     blob, secs, stages, canon = timed_prove(
-                        torch, path, sound=sound, backend="mesh", mesh=mesh)
+                        torch, path, sound=sound, with_joint_proof=sound,
+                        backend="mesh", mesh=mesh)
                 peak = torch.cuda.max_memory_allocated()
                 launches, work = read_launches()
                 digest = hashlib.sha256(blob).hexdigest()
-                if canon != canonical[mode]:
-                    raise AssertionError(f"the mesh {mode} proof differs "
-                                         f"from the device prove's")
-                if log_t == 16 and digest != want:
-                    raise AssertionError(f"the mesh {mode} proof sha256 "
-                                         f"{digest} != {want}")
-                idle = [k for k in MESH_PATH if launches[k] <= 0]
+                if not sound and canon != canonical:
+                    raise AssertionError("the mesh compat proof differs from "
+                                         "the device prove's")
+                if sound and digest != JAX_CLI_SOUND_DIGEST_T12:
+                    raise AssertionError(f"the mesh sound proof sha256 "
+                                         f"{digest} != "
+                                         f"{JAX_CLI_SOUND_DIGEST_T12}")
+                # at T = 2^12 the compat prove's committed polys are below
+                # DEVICE_COMMIT_MIN and commit on the host tier: no kernel B
+                need = [k for k in MESH_PATH
+                        if sound or (1 << CLI_LOG_T) >= DEVICE_COMMIT_MIN
+                        or k != "row_plane_sums"]
+                idle = [k for k in need if launches[k] <= 0]
                 if idle:
                     raise AssertionError(f"kernels not launched in the mesh "
                                          f"{mode} prove: {idle}")
-                say("mesh", f"{mode} prove on the mesh, tail 0: {secs:.3f} s "
-                            f"(the device prove of this call "
-                            f"{device_s[mode]:.3f} s) {stages}; peak device "
-                            f"memory {peak} bytes ({peak / 2 ** 20:.1f} MiB); "
-                            f"bytes equal to the device prove's"
-                            + (f", sha256 {digest} equal to the JAX digest"
-                               if log_t == 16 else ""))
+                say("mesh", f"{mode} prove on the mesh at T = 2^{CLI_LOG_T}, "
+                            f"tail 0: {secs:.3f} s (the device prove of this "
+                            f"call {device_s[mode]:.3f} s) {stages}; peak "
+                            f"device memory {peak} bytes "
+                            f"({peak / 2 ** 20:.1f} MiB); "
+                            + ("sha256 equal to the JAX CLI's" if sound else
+                               "bytes equal to the device prove's"))
                 say("mesh", f"launches in the mesh {mode} prove: {launches}")
                 figs = path_figures(work, None, "mesh",
                                     f"the mesh {mode} prove (device ms "
@@ -2833,8 +3031,7 @@ def mesh_cli(torch) -> dict:
     return out
 
 
-def run_mesh(torch, log_t: int, device_s: dict, canonical: dict,
-             kzg) -> dict:
+def run_mesh(torch, device_s: dict, canonical: bytes, kzg) -> dict:
     """Phase 12, mesh (see the module docstring)."""
     from zolt_tpu_torch.parallel import make_mesh
 
@@ -2844,7 +3041,7 @@ def run_mesh(torch, log_t: int, device_s: dict, canonical: dict,
                 f"torch.cuda.device_count() {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     out = {"sumcheck": mesh_sumcheck(torch, mesh),
-           **mesh_proves(torch, mesh, log_t, device_s, canonical),
+           **mesh_proves(torch, mesh, device_s, canonical),
            "msm": mesh_msm(torch, mesh, kzg), "cli": mesh_cli(torch)}
     out["seconds"] = time.perf_counter() - t0
     say("mesh", f"the mesh phase took {out['seconds']:.1f} s")
@@ -2853,9 +3050,11 @@ def run_mesh(torch, log_t: int, device_s: dict, canonical: dict,
 
 def kernels_json(stats: dict, launches: dict, path: dict,
                  sound_launches: dict, sound: dict, cli: dict, commits: dict,
-                 kzg: dict, legacy: dict, internal: dict, mesh: dict) -> list:
+                 kzg: dict, legacy: dict, internal: dict, mesh: dict,
+                 field: dict) -> list:
     """The kernels' entries of the JSON line. `launches` is the compat
-    prove's (the main path; kernel A's: msm_mesh's, its one path); each
+    prove's (the main path; kernel A's: msm_mesh's, its one path; kernel
+    F's: the bench's field section, which no prove reaches); each
     other path's launches and figures sit beside it under its own prefix:
     sound_, cli_, batch_opening_, legacy_, internal_, opening_ (the
     internal prove with its batch opening) and mesh_ (the mesh phase's
@@ -2967,6 +3166,18 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                               if k.startswith(("bound_ms", "device_ms"))})
         entry.update(other_paths(name))
         kernels.append(entry)
+    for name, src, rep in F_KERNELS:
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=field["launches"][name],
+                     path="the bench's field section (quick: batch_inverse "
+                          "at 2^12, Fr)",
+                     **{k: stats[name][k] for k in keys},
+                     shape=stats[name]["shape"],
+                     pow_shape={k: stats[name + "_pow"][k]
+                                for k in keys + ("shape",)},
+                     phase_seconds=field["seconds"])
+        entry.update(other_paths(name))
+        kernels.append(entry)
     return kernels
 
 
@@ -2975,9 +3186,9 @@ def main() -> int:
     ap.add_argument("--log-t", type=int, default=16,
                     help="log2 of the guest's trace length (default 16)")
     ap.add_argument("--profile", default=None,
-                    help="also run the profiled tail-0 device prove under "
-                         "cProfile and write both profiles to PROFILE.txt, "
-                         "and a profiled sound prove to PROFILE_sound.txt")
+                    help="also run the tail-0 device prove under cProfile "
+                         "and write both profiles to PROFILE.txt, and a "
+                         "profiled sound prove to PROFILE_sound.txt")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3010,25 +3221,49 @@ def main() -> int:
     say("build", f"native C tier loaded; trace materializer "
                  f"{'loaded' if get_trace_lib() is not None else 'absent'}")
 
+    phase_s: dict = {}
+    t_phase = [time.perf_counter()]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
+    done("device_build")
     stats: dict = {}
     check_kernels(torch, stats)
+    done("kernels")
+    field = run_field(torch)
+    stats.update(field["stats"])
+    done("field")
     kzg_srs = check_g1(torch, stats, args.log_t)
+    done("g1")
     launches, path, compat_proof = run_slice(torch, args.log_t, args.profile)
+    done("slice")
     sound_launches, sound, sound_proof = run_sound(torch, args.log_t,
                                                    args.profile)
+    done("sound")
     verify_s = run_verify(args.log_t, compat_proof, sound_proof)
+    done("verify")
     cli = run_cli(torch, root)
+    done("cli")
     say("verify", f"seconds: verify {verify_s}; cli {cli['seconds']}")
     commits = commit_pairs(torch, args.log_t)
+    done("commit")
     kzg = run_kzg(torch, kzg_srs)
+    done("kzg")
     legacy = run_legacy(torch, args.log_t)
+    done("legacy")
     internal = run_internal(torch, args.log_t, kzg_srs)
-    mesh = run_mesh(torch, args.log_t,
-                    {"compat": path["seconds"], "sound": sound["seconds"]},
-                    {"compat": compat_proof, "sound": sound_proof}, kzg_srs)
+    done("internal")
+    mesh = run_mesh(torch, {"compat": path["small"]["seconds"],
+                            "sound": cli["seconds"]["prove"]},
+                    path["small"]["canonical"], kzg_srs)
+    done("mesh")
+    say("done", f"seconds by phase: {phase_s}")
 
     kernels = kernels_json(stats, launches, path, sound_launches, sound, cli,
-                           commits, kzg, legacy, internal, mesh)
+                           commits, kzg, legacy, internal, mesh, field)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

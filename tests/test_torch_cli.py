@@ -14,9 +14,9 @@ tier, as tests/test_torch_legacy.py runs it), and `verify` (--strict
 too) and `stats` of each, a flipped stage-1 byte of each, and a
 Jolt-format file without --elf, with JAX's lines. `prove --backend mesh`
 and `--stage1-backend mesh` (make_mesh() on "cpu" shards) write the JAX
-CLI's host-tier file. `bench` (not ported) and --backend mesh for the
-internal and legacy provers (no mesh path) must exit 2 with a message
-naming them, and the default backend must raise without a CUDA device.
+CLI's host-tier file. --backend mesh for the internal and legacy
+provers (no mesh path) must exit 2 with a message naming them (`bench`
+is tests/test_torch_bench.py's), and the default backend must raise without a CUDA device.
 Pins: the digests chip_smoke.py holds its CLI proves at T = 2^12 to
 (JAX's CLI on the host tier), the golden-array guest with the joint Dory
 proof on the device path (device="cpu"), and `stages=3` and `stages=5`
@@ -157,7 +157,6 @@ REFUSALS = {
                       ("no mesh path", "internal")),
     "legacy_mesh": (["prove", "{elf}", "--legacy", "--backend", "mesh"],
                     ("no mesh path", "legacy")),
-    "bench": (["bench"], ("not ported yet", "bench")),
 }
 
 

@@ -37,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MIXED_GROUPS
+from chip_smoke import MIXED_GROUPS, field_words
 from zolt_tpu_torch.field import evals, fold, gruen
 from zolt_tpu_torch.msm import rows_device
 
@@ -693,3 +693,66 @@ def test_msm_mesh_on_four_shards_of_one_card(gen):
             dev.pt_sum.counts["launches"] - c[1],
             pippenger.window_sums.counts["launches"] - c[2],
             dev.pt_add.counts["launches"] - c[3]) == (16, 4, 4, 0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F (csrc/field_inv.cu): pow_fixed and batch_inverse
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("field", ["fr", "fp"])
+@pytest.mark.parametrize("n", [1, 7, 1000, 16897, (1 << 16) + 3, 1 << 20])
+def test_batch_inverse_kernel_matches_plain(gen, field, n):
+    """Kernel F's batch inversion: words equal to the plain version's (the
+    same chunks) and, on a sample, to Python's pow; one launch a call;
+    chunks of 1 to 62 entries, n no multiple of the chunk, zeros to
+    zeros."""
+    from zolt_tpu_torch.field import inverse, limb
+
+    f = limb.FR_C if field == "fr" else limb.FP_C
+    p = f.params.p
+    a = field_words(torch, gen, n)
+    before = inverse.batch_inverse.counts["launches"]
+    got = limb.batch_inverse(a, f)
+    assert inverse.batch_inverse.counts["launches"] == before + 1
+    assert torch.equal(got, inverse.batch_inverse_plain(a, f))
+    k = min(n, 64)
+    assert limb.words_to_ints(limb.from_mont(got[:k], f)) == [
+        pow(v, p - 2, p) for v in limb.decode(a[:k], f)]
+
+
+def test_batch_inverse_kernel_takes_batches_and_views(gen):
+    from zolt_tpu_torch.field import inverse, limb
+
+    a = field_words(torch, gen, 3 * 1000)
+    want = inverse.batch_inverse_plain(a, limb.FR_C)
+    got = limb.batch_inverse(a.view(1000, 3, 8))
+    assert got.shape == (1000, 3, 8)
+    assert torch.equal(got.reshape(-1, 8), want)
+    assert torch.equal(limb.batch_inverse(a[::2]), want[::2])
+    # an all-zero batch, and every chunk all zero
+    z = torch.zeros((40000, 8), dtype=torch.int32, device="cuda")
+    assert not limb.batch_inverse(z).any()
+
+
+@pytest.mark.parametrize("field", ["fr", "fp"])
+@pytest.mark.parametrize("e", [0, 1, 2, 0b1011001, (1 << 100) + 12345, None])
+def test_pow_fixed_kernel_matches_plain(gen, field, e):
+    """Kernel F's pow_fixed: words equal to the plain version's and, on a
+    sample, to Python's pow; e = 0 (no bits: the array is never read)
+    gives one; None is p - 2, `inverse`."""
+    from zolt_tpu_torch.field import inverse, limb
+
+    f = limb.FR_C if field == "fr" else limb.FP_C
+    p = f.params.p
+    a = field_words(torch, gen, 4099)
+    bits = (f.p_minus_2_bits if e is None else
+            tuple((e >> i) & 1 for i in range(e.bit_length())))
+    before = inverse.pow_fixed.counts["launches"]
+    got = limb.mont_pow_fixed(a, bits, f)
+    assert inverse.pow_fixed.counts["launches"] == before + 1
+    assert torch.equal(got, inverse.pow_fixed_plain(a, bits, f))
+    exp = p - 2 if e is None else e
+    assert limb.decode(got[:64], f) == [pow(v, exp, p)
+                                        for v in limb.decode(a[:64], f)]
+    if e is None:
+        assert torch.equal(limb.inverse(a, f), got)

@@ -487,7 +487,7 @@ def test_hyperkzg_matches_jax(kzg_pair):
     c = hyperkzg.commit(port, words)
     assert c == jax_kzg.commit(ref, limb.to_jax_limbs(words))
     assert c == hyperkzg.commit_ints(port, evals, device="cpu")
-    assert c == hyperkzg.commit_ints(port, evals)
+    assert c == hyperkzg.commit_ints(port, evals, device=None)
     assert pippenger.srs_table(port, "cpu") is pippenger.srs_table(port, "cpu")
     tp, tj = Blake2bTranscript(b"kzg"), JaxTranscript(b"kzg")
     proof = hyperkzg.open_at(port, evals, x, tp, device="cpu")
@@ -507,10 +507,10 @@ def test_hyperkzg_batch_matches_jax(kzg_pair):
     rng = np.random.default_rng(22)
     polys = [[int(v) for v in rng.integers(0, 1 << 60, 16)] for _ in range(3)]
     x = [int(v) for v in rng.integers(1, 1 << 60, 4)]
-    coms = hyperkzg.batch_commit(port, polys)
+    coms = hyperkzg.batch_commit(port, polys, device=None)
     assert coms == jax_kzg.batch_commit(ref, polys)
     tp, tj = Blake2bTranscript(b"b"), JaxTranscript(b"b")
-    bp = hyperkzg.batch_open(port, polys, x, tp)
+    bp = hyperkzg.batch_open(port, polys, x, tp, device=None)
     jp = jax_kzg.batch_open(ref, polys, x, tj)
     assert bp.evaluations == jp.evaluations
     assert (bp.proof.com, bp.proof.v, bp.proof.w) == (jp.proof.com, jp.proof.v,

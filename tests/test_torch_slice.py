@@ -124,7 +124,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import zolt_tpu_torch.zkvm.pipeline\n"
         "import chip_smoke\n"
         "ex = sorted(glob.glob('examples/torch_*.py'))\n"
-        "assert len(ex) == 2, ex\n"
+        "assert len(ex) == 7, ex\n"
         "for path in ex:\n"
         "    runpy.run_path(path)\n"
         "bad = sorted(n for n in sys.modules\n"

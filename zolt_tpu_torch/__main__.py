@@ -1,4 +1,5 @@
-"""zolt-tpu-torch CLI: run / trace / decode / prove / verify / stats / srs / info.
+"""zolt-tpu-torch CLI: run / trace / decode / prove / verify / stats / srs /
+bench / info.
 
 The command surface of the JAX package's CLI, on the port:
     python -m zolt_tpu_torch run <elf> [--max N] [--regs]
@@ -17,6 +18,8 @@ The command surface of the JAX package's CLI, on the port:
                                     [--strict]
     python -m zolt_tpu_torch stats <proof>
     python -m zolt_tpu_torch srs <ptau-or-raw-srs>
+    python -m zolt_tpu_torch bench [--quick] [--only SECTIONS]
+                                   [--device cuda|cpu] [--elf PATH]
     python -m zolt_tpu_torch info
 
 `prove` writes the internal ZOLT v1 container (zkvm/internal.py, the
@@ -39,9 +42,13 @@ clobbers the serialized RAF claim); --strict is accepted and does nothing.
 --device pins the Fiat-Shamir preamble to a JoltDevice file written at
 prove time with --device-out.
 
-Refused with exit code 2 and a message naming it: `bench` (not ported
-yet), and --backend mesh for the internal and legacy provers, which have
-no mesh path (the JAX package's take no backend).
+`bench` runs the micro-benchmarks of benchmarks.py (the JAX package's
+sections) on --device, "cuda" by default (it raises without a CUDA
+device; "cpu" runs the kernels' plain torch versions).
+
+Refused with exit code 2 and a message naming it: --backend mesh for the
+internal and legacy provers, which have no mesh path (the JAX package's
+take no backend).
 """
 
 from __future__ import annotations
@@ -391,8 +398,12 @@ def cmd_srs(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError("bench (the JAX package's benchmarks.py) is not "
-                              "ported yet (ROADMAP Queue 1 item 3)")
+    from .benchmarks import run_benchmarks
+
+    sections = set(args.only.split(",")) if args.only else None
+    run_benchmarks(sections=sections, quick=args.quick, device=args.device,
+                   elf=args.elf)
+    return 0
 
 
 def cmd_info(args) -> int:
@@ -500,7 +511,17 @@ def main(argv=None) -> int:
     psrs.add_argument("file")
     psrs.set_defaults(fn=cmd_srs)
 
-    pb = sub.add_parser("bench", help="micro-benchmarks: not ported yet")
+    pb = sub.add_parser("bench", help="run micro-benchmarks")
+    pb.add_argument("--quick", action="store_true", help="smaller sizes")
+    pb.add_argument("--only", help="comma-separated sections "
+                    "(field,poly,msm,commit,emulator,prover,scaling,"
+                    "roofline,mesh,e2e,chipcheck)")
+    pb.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a CUDA device) "
+                    "or cpu (the kernels' plain torch versions)")
+    pb.add_argument("--elf", default=None,
+                    help="the guest the prover section proves (without "
+                    "one, the section skips)")
     pb.set_defaults(fn=cmd_bench)
 
     pi = sub.add_parser("info", help="version and device info")

@@ -4,8 +4,8 @@ Two libraries are built on first use into `zolt_tpu_torch/_build/` (listed
 in .gitignore), never next to the sources:
 
 - the host C tier (native/*.c, built by native/__init__.py with `cc`);
-- the Hopper kernels (csrc/*.cu: the Fr sumcheck kernels and the G1
-  kernels), built here with nvcc for sm_90a into one
+- the Hopper kernels (csrc/*.cu: the Fr sumcheck kernels, the G1
+  kernels and the field inversion), built here with nvcc for sm_90a into one
   shared library with a plain C interface and bound with ctypes. Its file
   name carries a hash of the sources, so an edited kernel is never served
   from a stale build.
@@ -26,7 +26,7 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_round.cu", "g1.cu",
-                  "rows_msm.cu", "pippenger.cu")
+                  "rows_msm.cu", "pippenger.cu", "field_inv.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -129,6 +129,10 @@ def kernels() -> KernelLib:
     lib.zg1_window_sums.restype = I
     lib.zg1_scalar_digits.argtypes = [P, L, P, P]
     lib.zg1_scalar_digits.restype = I
+    lib.zfr_pow_fixed.argtypes = [P, P, L, P, I, I, P]
+    lib.zfr_pow_fixed.restype = I
+    lib.zfr_batch_inverse.argtypes = [P, P, L, I, I, P]
+    lib.zfr_batch_inverse.restype = I
     _KERNELS = KernelLib(lib, so, build_s, ptxas_log)
     return _KERNELS
 

@@ -37,6 +37,19 @@ struct FrMod {
         }
     }
     static constexpr uint32_t INV = 0xefffffffu;    // -p^{-1} mod 2^32
+    // R mod p: the Montgomery form of 1 (field_ptx.cuh r_mod_p)
+    static __device__ __forceinline__ uint32_t one_word(int i) {
+        switch (i) {
+            case 0: return 0x4ffffffbu;
+            case 1: return 0xac96341cu;
+            case 2: return 0x9f60cd29u;
+            case 3: return 0x36fc7695u;
+            case 4: return 0x7879462eu;
+            case 5: return 0x666ea36fu;
+            case 6: return 0x9a07df2fu;
+            default: return 0x0e0a77c1u;
+        }
+    }
 };
 
 // p = 0x30644e72e131a029b85045b68181585d97816a916871ca8d3c208c16d87cfd47

@@ -1,0 +1,192 @@
+"""Kernel F: fixed-exponent powers and batch inversion of field elements.
+
+    pow_fixed(a, bits)   a^e elementwise, e = Σ bits[i]·2^i, a public
+                         exponent (bits LSB first, any length)
+    batch_inverse(a)     a^{-1} elementwise, zeros mapping to zeros
+
+over (..., 8) int32 Montgomery words of Fr or Fp (field/limb.py; the
+field's FieldConst picks the modulus). On CUDA tensors they launch
+csrc/field_inv.cu, which replaces the XLA code of zolt_tpu/field/limb.py
+(mont_pow_fixed, inverse and batch_inverse), or raise; on CPU tensors they
+run `pow_fixed_plain` and `batch_inverse_plain`, the torch versions of the
+same functions. limb.mont_pow_fixed, limb.inverse and limb.batch_inverse
+call them.
+
+The batch inversion is the Montgomery trick over chunks of c entries
+(`chunk_of`): entry t + j·T of the flattened batch is entry j of chunk t,
+T = ceil(m / c) chunks, so neighbouring threads read neighbouring entries.
+A chunk's running product of its non-zero entries, one Fermat inverse of
+that product, then back-substitution; zeros are written as zeros. Every
+result is a canonical residue, so the words equal JAX's, whose prefix and
+suffix scans group the products otherwise.
+
+Counters, plain integers in `pow_fixed.counts` and `batch_inverse.counts`:
+"launches", "elements", and the "bytes" and "imads" the function needs
+(`pow_work`, `inverse_work`; batch_inverse counts every entry as non-zero,
+since it does not read the data back to the host). They count the
+function's work, not the kernel's: a batch inversion needs one Fermat
+inverse, whatever number of chunks the kernel inverts, so the chunks'
+extra inverses are the kernel's cost and show against the bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from . import limb
+
+# Threads a launch aims for: 132 SMs x 128. Fewer threads leave the
+# integer pipes idle while each waits on its chain of dependent products;
+# more chunks pay a Fermat inverse (253 squarings) each.
+TARGET_THREADS = 132 * 128
+MAX_CHUNK = 64
+_FIELDS = {"fr": 0, "fp": 1}      # csrc/field_inv.cu field ids
+
+
+def chunk_of(m: int) -> int:
+    """Entries a thread inverts with one Fermat inverse, for m entries."""
+    return max(1, min(MAX_CHUNK, -(-m // TARGET_THREADS)))
+
+
+def fermat_products(f: limb.FieldConst) -> int:
+    """Montgomery products of one Fermat inverse in the kernel: a
+    square-and-multiply from the top bit of p − 2 (bit 253 for both
+    moduli), which starts the accumulator at the base."""
+    bits = f.p_minus_2_bits
+    return len(bits) - 1 + sum(bits) - 1
+
+
+def pow_work(n: int, bits) -> tuple[int, int]:
+    """Bytes and IMADs of pow_fixed over n elements: each element read
+    once and written once, the bits read once; a squaring at every bit and
+    a product at every set bit, as the kernel runs them."""
+    return 64 * n + len(bits), n * (len(bits) + sum(bits)) * limb.MONT_IMADS
+
+
+def inverse_work(n: int, nonzero: int, f: limb.FieldConst
+                 ) -> tuple[int, int]:
+    """Bytes and IMADs a batch inversion of n entries, `nonzero` of them
+    non-zero, needs: each entry read once and written once; three products
+    a non-zero entry (the running product, its inverse, the next inverse)
+    and one Fermat inverse for the whole batch. The kernel's chunks each
+    pay a Fermat inverse of their own, which this does not count. One
+    Fermat inverse is also a chain of fermat_products(f) dependent
+    products, a latency floor apart from this bound."""
+    return 64 * n, (3 * nonzero + fermat_products(f)) * limb.MONT_IMADS
+
+
+def _check(a: torch.Tensor, who: str) -> None:
+    if a.dtype != torch.int32 or a.dim() < 1 or a.shape[-1] != 8:
+        raise ValueError(f"{who} takes (..., 8) int32 words, got "
+                         f"{tuple(a.shape)} {a.dtype}")
+
+
+def pow_fixed_plain(a: torch.Tensor, bits, f: limb.FieldConst = limb.FR_C
+                    ) -> torch.Tensor:
+    """The torch version of pow_fixed (any device): the kernel's
+    square-and-multiply from the top bit down."""
+    acc = limb.one_mont(a.shape[:-1], f, a.device).contiguous()
+    for b in reversed(bits):
+        acc = limb.mont_sqr(acc, f)
+        if b:
+            acc = limb.mont_mul(acc, a, f)
+    return acc
+
+
+def batch_inverse_plain(a: torch.Tensor, f: limb.FieldConst = limb.FR_C
+                        ) -> torch.Tensor:
+    """The torch version of batch_inverse (any device): the kernel's
+    chunks of chunk_of(m) entries, their running products, one Fermat
+    inverse a chunk, the back-substitution."""
+    x = a.reshape(-1, 8)
+    m = x.shape[0]
+    c = chunk_of(m)
+    t = -(-m // c)
+    xs = torch.cat([x, limb.zeros((t * c - m,), x.device)]).reshape(c, t, 8)
+    zero = limb.is_zero(xs)
+    one = limb.one_mont((t,), f, x.device).contiguous()
+    run, prefix = one, []
+    for j in range(c):
+        run = limb.select(zero[j], run, limb.mont_mul(run, xs[j], f))
+        prefix.append(run)
+    inv = pow_fixed_plain(run, f.p_minus_2_bits, f)
+    out = [None] * c
+    for j in reversed(range(c)):
+        prev = prefix[j - 1] if j else one
+        out[j] = limb.select(zero[j], torch.zeros_like(prev),
+                             limb.mont_mul(inv, prev, f))
+        inv = limb.select(zero[j], inv, limb.mont_mul(inv, xs[j], f))
+    return torch.stack(out).reshape(t * c, 8)[:m].reshape(a.shape)
+
+
+def _prepare(a: torch.Tensor, who: str) -> tuple[torch.Tensor, torch.Tensor]:
+    if a.device.type != "cuda":
+        raise ValueError(f"{who} has no kernel for device {a.device}")
+    x = a.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"{who} needs 16-byte aligned words")
+    return x, torch.empty_like(x)
+
+
+def _count(counts: dict, n: int, work: tuple[int, int]) -> None:
+    counts["launches"] += 1
+    counts["elements"] += n
+    counts["bytes"] += work[0]
+    counts["imads"] += work[1]
+
+
+def pow_fixed(a: torch.Tensor, bits, f: limb.FieldConst = limb.FR_C
+              ) -> torch.Tensor:
+    """a^e elementwise, e given by its LSB-first bits (a tuple of 0/1;
+    empty is e = 0, whose power is 1). Montgomery in and out."""
+    _check(a, "pow_fixed")
+    bits = tuple(1 if b else 0 for b in bits)
+    if a.device.type == "cpu":
+        return pow_fixed_plain(a, bits, f)
+    x, out = _prepare(a, "pow_fixed")
+    n = x.numel() // 8
+    if n:
+        bt = (torch.tensor(bits, dtype=torch.uint8, device=x.device)
+              if bits else None)
+        with torch.cuda.device(x.device):
+            rc = _build.kernels().lib.zfr_pow_fixed(
+                x.data_ptr(), out.data_ptr(), n,
+                None if bt is None else bt.data_ptr(), len(bits),
+                _FIELDS[f.name], torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, f"pow_fixed ({n} elements, {len(bits)} bits)")
+        _count(pow_fixed.counts, n, pow_work(n, bits))
+    return out
+
+
+pow_fixed.counts = dict.fromkeys(("launches", "elements", "bytes", "imads"),
+                                 0)
+
+
+def batch_inverse(a: torch.Tensor, f: limb.FieldConst = limb.FR_C
+                  ) -> torch.Tensor:
+    """The inverse of every element of an (n, ..., 8) batch, n >= 1, zeros
+    mapping to zeros. Montgomery in and out."""
+    _check(a, "batch_inverse")
+    if a.dim() < 2 or a.shape[0] < 1:
+        raise ValueError(f"batch_inverse takes an (n, ..., 8) batch with "
+                         f"n >= 1, got {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return batch_inverse_plain(a, f)
+    x, out = _prepare(a, "batch_inverse")
+    m = x.numel() // 8
+    if m:
+        c = chunk_of(m)
+        with torch.cuda.device(x.device):
+            rc = _build.kernels().lib.zfr_batch_inverse(
+                x.data_ptr(), out.data_ptr(), m, c, _FIELDS[f.name],
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, f"batch_inverse ({m} entries, chunks of {c})")
+        _count(batch_inverse.counts, m, inverse_work(m, m, f))
+    return out
+
+
+batch_inverse.counts = dict.fromkeys(
+    ("launches", "elements", "bytes", "imads"), 0)

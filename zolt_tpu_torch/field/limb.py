@@ -7,7 +7,11 @@ the JAX package's (..., 16) u16-in-u32 limbs (zolt_tpu/field/limb.py), so
 moving data between the three is a byte reinterpretation.
 
 The arithmetic below is the plain torch reference for the CUDA kernels of
-csrc/ and the device code of parallel/ and zkvm/device_outer.py. It splits
+csrc/ and the device code of parallel/ and zkvm/device_outer.py, plus
+the JAX package's helpers around it (mont_sqr, to_mont, from_mont,
+one_mont, eq, const_vec). The exponentiations (mont_pow_fixed, inverse,
+batch_inverse) go through field/inverse.py: kernel F on a CUDA tensor,
+its plain version on a CPU tensor. The arithmetic here splits
 words into 16 limbs of 16 bits held in int64, where every partial product
 and column sum is exact, and runs unchanged on CPU or CUDA tensors. torch's
 unsigned 32-bit support is partial (especially on CUDA), so words keep
@@ -34,10 +38,20 @@ class FieldConst(NamedTuple):
     params: FieldParams
     p16: tuple[int, ...]     # modulus, 16 little-endian 16-bit limbs
     inv: int                 # -p^{-1} mod 2^16
+    r_words: tuple[int, ...]   # R mod p (the Montgomery form of 1), 8 words
+    r2_words: tuple[int, ...]  # R^2 mod p (to_mont's multiplier), 8 words
+    p_minus_2_bits: tuple[int, ...]  # bits of p - 2, LSB first (inverse)
+
+
+def _words8(x: int) -> tuple[int, ...]:
+    return tuple((x >> (32 * i)) & _MASK32 for i in range(8))
 
 
 def _mk_const(fp: FieldParams) -> FieldConst:
-    return FieldConst(fp.name, fp, tuple(fp.p_limbs), fp.inv)
+    e = fp.p - 2
+    return FieldConst(fp.name, fp, tuple(fp.p_limbs), fp.inv,
+                      _words8(fp.r), _words8(fp.r2),
+                      tuple((e >> i) & 1 for i in range(e.bit_length())))
 
 
 FR_C = _mk_const(FR)
@@ -145,6 +159,63 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
         t[..., i + 1] += t[..., i] >> 16       # low 16 bits are now zero
     limbs, carry = _propagate(t[..., 16:32])
     return from_limbs16(_cond_sub_p(limbs, carry + t[..., 32], f))
+
+
+def mont_sqr(a: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    return mont_mul(a, a, f)
+
+
+def const_vec(words, device="cpu") -> torch.Tensor:
+    """8 unsigned 32-bit words (a FieldConst's r_words, say) -> an (8,)
+    int32 tensor of the same bits."""
+    return torch.tensor([w - ((w >> 31) << 32) for w in words],
+                        dtype=torch.int32, device=device)
+
+
+def to_mont(a: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    """Canonical residues -> Montgomery form (a product by R^2)."""
+    return mont_mul(a, const_vec(f.r2_words, a.device), f)
+
+
+def from_mont(a: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    """Montgomery form -> canonical residues (a product by 1)."""
+    return mont_mul(a, const_vec(_words8(1), a.device), f)
+
+
+def one_mont(shape=(), f: FieldConst = FR_C, device="cpu") -> torch.Tensor:
+    """The Montgomery form of 1, shaped (*shape, 8)."""
+    return const_vec(f.r_words, device).expand(tuple(shape) + (8,))
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per element of the batch: all words equal."""
+    return (a == b).all(dim=-1)
+
+
+def mont_pow_fixed(a: torch.Tensor, e_bits, f: FieldConst = FR_C
+                   ) -> torch.Tensor:
+    """a^e elementwise for a public exponent e given by its LSB-first bits
+    (any length; no bits is e = 0). Montgomery in and out. On a CUDA
+    tensor kernel F (field/inverse.py) runs it, on a CPU tensor its plain
+    version."""
+    from . import inverse as inv
+
+    return inv.pow_fixed(a, tuple(e_bits), f)
+
+
+def inverse(a: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    """Fermat inverse a^(p-2) elementwise; inverse(0) = 0."""
+    return mont_pow_fixed(a, f.p_minus_2_bits, f)
+
+
+def batch_inverse(a: torch.Tensor, f: FieldConst = FR_C) -> torch.Tensor:
+    """The inverse of every element of an (n, ..., 8) batch, n >= 1, zeros
+    mapping to zeros: the Montgomery trick (field/inverse.py, kernel F on
+    a CUDA tensor). Elementwise inversion does not depend on how the
+    batch is grouped, so the result equals `inverse` word for word."""
+    from . import inverse as inv
+
+    return inv.batch_inverse(a, f)
 
 
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -27,9 +27,10 @@ and nothing is tiled. On CPU tensors the wrappers run their plain torch
 versions. Results are compared in affine form: a sum's Jacobian words
 depend on its order, its point does not.
 
-`msm(points, scalars, device)` runs the Pippenger on `device` at every
-size once a device is given: work asked of a device never moves to the
-host. With no device (Dory's callers) it stays on the host tiers: the
+`msm(points, scalars, device="cuda")` runs the Pippenger on `device` at
+every size: on the card unless asked otherwise (it raises where there is
+no CUDA device), and work asked of a device never moves to the host. With
+device=None (Dory's callers) it stays on the host tiers: the
 double-and-add below HOST_MAX points, else the native C MSM. `srs_msm`
 takes a KZG SRS's affine table from a cache instead of building it a
 call (HyperKZG). `msm_mesh` shards the points over a mesh
@@ -50,6 +51,7 @@ from ..curve import host as chost
 from ..field import limb
 from ..field.limb import FP_C, FR_C
 from ..field.params import FP, FR
+from ..utils import require_cuda
 
 WINDOW_BITS = 8
 N_WINDOWS = 32  # 256 bits / 8
@@ -438,17 +440,19 @@ def pippenger(points: list, scalars: list[int], device):
                       int_digits(scalars, device))
 
 
-def msm(points: list, scalars: list[int], device=None):
+def msm(points: list, scalars: list[int], device="cuda"):
     """Multi-scalar multiplication Σ s_i · P_i -> host affine point.
 
-    points: host affine points (or None); scalars: ints. With a device,
-    the Pippenger on it at every size (its plain versions on "cpu");
-    with none, the host tiers: the double-and-add below HOST_MAX points,
-    else the native C MSM (the double-and-add where it is absent)."""
+    points: host affine points (or None); scalars: ints. With a device
+    (the card by default), the Pippenger on it at every size (its plain
+    versions on "cpu"); with device=None, the host tiers: the
+    double-and-add below HOST_MAX points, else the native C MSM (the
+    double-and-add where it is absent)."""
     n = len(points)
     if n != len(scalars) or n == 0:
         raise ValueError(f"msm of {n} points and {len(scalars)} scalars")
     if device is not None:
+        require_cuda(device, "msm")
         return pippenger(points, scalars, device)
     if n < HOST_MAX:
         return chost.msm(points, scalars)

@@ -32,7 +32,13 @@ from ..curve import host as G1
 from ..curve.pairing import multi_pairing
 from ..field import tower as tw
 from ..field.params import FP, FR
-from ..msm import msm as g1_msm
+from ..msm import msm
+
+
+def g1_msm(points, scalars):
+    """An MSM on the host tiers: Dory's prover and verifier run on the
+    host (the device row MSMs are msm/rows_device.py)."""
+    return msm(points, scalars, device=None)
 
 P = FR.p
 PQ = FP.p

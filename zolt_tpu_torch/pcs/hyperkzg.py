@@ -5,8 +5,9 @@ univariate coefficients. Every MSM runs on the device Pippenger
 (msm/pippenger.py `srs_msm`, kernels C and D, the SRS's points from a
 cache) on the device a caller names, at every size: `commit` takes the
 device of its tensor and makes the digits there (kernel E on the card);
-`commit_ints`, `open_at` and `batch_*` take `device`. With no device
-they commit on the host tiers (`msm.msm`), as the JAX package does.
+`commit_ints`, `open_at` and `batch_*` take `device`, the card by default
+(they raise where there is no CUDA device). With device=None they commit
+on the host tiers (`msm.msm`), as the JAX package does on its host.
 
 Opening at multilinear point x (little-endian, x[0] binds the low variable,
 matching dense.bind_low) uses the Gemini reduction exactly as Jolt/Nova's
@@ -35,6 +36,7 @@ from ..curve import host as G1
 from ..curve.pairing import pairing_check
 from ..field.params import FR
 from ..msm import msm, pippenger
+from ..utils import require_cuda
 
 P = FR.p
 
@@ -52,12 +54,13 @@ def commit(srs, evals) -> tuple:
     return pippenger.srs_msm(srs, pippenger.scalar_digits(evals.reshape(-1, 8)))
 
 
-def commit_ints(srs, coeffs: list[int], device=None) -> tuple:
-    """Commit of host ints by the Pippenger on `device`, or on the host
-    tiers with no device."""
+def commit_ints(srs, coeffs: list[int], device="cuda") -> tuple:
+    """Commit of host ints by the Pippenger on `device` (the card by
+    default), or on the host tiers with device=None."""
     scalars = [c % P for c in coeffs]
     if device is None:
-        return msm(srs.powers_g1[: len(scalars)], scalars)
+        return msm(srs.powers_g1[: len(scalars)], scalars, device=None)
+    require_cuda(device, "commit_ints")
     return pippenger.srs_msm(srs, pippenger.int_digits(scalars, device))
 
 
@@ -68,7 +71,7 @@ def _uni_eval(coeffs: list[int], x: int) -> int:
     return acc
 
 
-def _kzg_witness(srs, coeffs: list[int], u: int, device=None):
+def _kzg_witness(srs, coeffs: list[int], u: int, device):
     """Commit((B(X) − B(u)) / (X − u)) by synthetic division."""
     n = len(coeffs)
     q = [0] * (n - 1)
@@ -80,9 +83,12 @@ def _kzg_witness(srs, coeffs: list[int], u: int, device=None):
 
 
 def open_at(srs, evals: list[int], x: list[int], transcript,
-            device=None) -> HyperKZGProof:
+            device="cuda") -> HyperKZGProof:
     """Prove evals(x) where evals is the MLE table (len 2^n), x little-endian.
-    The commitments' MSMs run on `device` (the host tiers with none)."""
+    The commitments' MSMs run on `device`, the card by default (the host
+    tiers with device=None)."""
+    if device is not None:
+        require_cuda(device, "open_at")
     n = len(x)
     assert len(evals) == 1 << n
 
@@ -213,15 +219,20 @@ def _mle_eval(evals: list[int], x: list[int]) -> int:
     return cur[0] % P
 
 
-def batch_commit(srs, polys: list[list[int]], device=None) -> list:
-    """One commitment per polynomial (mod.zig:558-570)."""
+def batch_commit(srs, polys: list[list[int]], device="cuda") -> list:
+    """One commitment per polynomial (mod.zig:558-570), on `device` (the
+    card by default; the host tiers with device=None)."""
     return [commit_ints(srs, p, device) for p in polys]
 
 
 def batch_open(srs, polys: list[list[int]], x: list[int],
-               transcript, device=None) -> HyperKZGBatchProof:
+               transcript, device="cuda") -> HyperKZGBatchProof:
     """Single opening for many polys at one point: append every claim,
-    draw γ, open the γ-RLC combination with the standard protocol."""
+    draw γ, open the γ-RLC combination with the standard protocol. Its
+    MSMs run on `device` (the card by default; the host tiers with
+    device=None)."""
+    if device is not None:
+        require_cuda(device, "batch_open")
     assert polys and all(len(p) == 1 << len(x) for p in polys)
     evals = [_mle_eval(p, x) for p in polys]
     transcript.append_scalars(evals)

@@ -86,3 +86,14 @@ def next_power_of_two(n: int) -> int:
 
 def ceil_log2(n: int) -> int:
     return 0 if n <= 1 else (n - 1).bit_length()
+
+
+def require_cuda(device, who: str) -> None:
+    """Raise where `device` names CUDA and there is none: work that runs
+    on the card by default never falls back to the CPU."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who} runs on the GPU by default and there is "
+                           f"no CUDA device; pass device='cpu' for the "
+                           f"kernels' plain torch versions")

@@ -442,6 +442,13 @@ def build_ram_ra_u8(steps, size: int, shift: int) -> np.ndarray:
     return out
 
 
+def build_ram_ra(steps, size: int, shift: int):
+    from ..native.frvec import FrVec
+
+    return FrVec.from_u64_array(
+        build_ram_ra_u8(steps, size, shift).astype(np.uint64))
+
+
 def ram_ra_onehot_positions(steps, size: int, shift: int, start_address: int,
                             log_ram_k: int) -> np.ndarray:
     """Sound mode: one-hot positions of RamRa chunk `shift` over the
@@ -462,6 +469,17 @@ def ram_ra_onehot_positions(steps, size: int, shift: int, start_address: int,
     return (kv << np.int64(n_vars)) | j
 
 
+def build_ram_ra_onehot(steps, size: int, shift: int, start_address: int,
+                        log_ram_k: int):
+    """Sound mode: the one-hot chunk indicator over the (chunk-value ×
+    cycle) cube at ram_ra_onehot_positions, as an FrVec."""
+    from ..native.frvec import FrVec
+
+    pos = ram_ra_onehot_positions(steps, size, shift, start_address,
+                                  log_ram_k)
+    return FrVec.indicator((1 << LOG_K_CHUNK) * size, pos)
+
+
 def build_bytecode_ra_u8(steps, size: int, shift: int) -> np.ndarray:
     """Bytecode chunk poly values. NOTE: unlike the other builders, noop
     padding rows carry the halt pc, so this one spans the PADDED trace."""
@@ -472,6 +490,13 @@ def build_bytecode_ra_u8(steps, size: int, shift: int) -> np.ndarray:
     out = np.zeros(size, np.uint8)
     out[:n] = pcs.astype(np.uint8)
     return out
+
+
+def build_bytecode_ra(steps, size: int, shift: int):
+    from ..native.frvec import FrVec
+
+    return FrVec.from_u64_array(
+        build_bytecode_ra_u8(steps, size, shift).astype(np.uint64))
 
 
 # ---------------------------------------------------------------------------

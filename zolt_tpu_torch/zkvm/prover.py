@@ -13,9 +13,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field as dfield
 
-import torch
-
 from ..transcript import KeccakTranscript
+from ..utils import require_cuda
 from ..utils.log import metrics
 from ..vm.layout import RAM_START_ADDRESS
 from . import lasso, stages
@@ -34,10 +33,7 @@ def require_device(device, who: str) -> None:
     device is never guessed and nothing falls back to the CPU."""
     if device is None:
         raise ValueError(f"{who} needs an explicit device=")
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who} runs on the GPU by default and there is "
-                           f"no CUDA device; pass device='cpu' for the "
-                           f"kernels' plain torch versions")
+    require_cuda(device, who)
 
 
 def prove(padded_steps, memory_trace, lookup_entries=None, log_k: int = 16,

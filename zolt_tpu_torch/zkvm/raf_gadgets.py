@@ -87,6 +87,34 @@ class RafSpec:
     zero_output: bool = False          # LookupOutput column zeroed
 
 
+def gadget_eval_bits(slot: Slot, idx: int) -> int:
+    """Gadget value at a binary index (integer semantics, mod p)."""
+    g = slot.g
+    if g == G.ZERO:
+        v = 0
+    elif g == G.IDENT128:
+        v = idx % P
+    elif g == G.IDENT_LOW64:
+        v = idx & M64
+    elif g == G.IDENT_LOW64_NO0:
+        v = idx & M64 & ~1
+    elif g == G.IDENT_HIGH64:
+        v = (idx >> 64) & M64
+    elif g == G.ODDS:
+        v = tb.uninterleave_bits(idx, 64)[0]
+    elif g == G.EVENS:
+        v = tb.uninterleave_bits(idx, 64)[1]
+    elif g == G.EVENS_PLUS_ODDS:
+        x, y = tb.uninterleave_bits(idx, 64)
+        v = x + y
+    elif g == G.SUB_COMBO:
+        x, y = tb.uninterleave_bits(idx, 64)
+        v = TWO64 + x - y
+    else:
+        v = tb.materialize_entry(slot.table, idx, 64)
+    return (v + slot.const) % P
+
+
 def gadget_eval_point(slot: Slot, r: list[int]) -> int:
     """Gadget multilinear extension at an arbitrary 128-coordinate point
     (little-endian: r[i] is index bit i). Verifier-side closed form."""
