@@ -70,12 +70,29 @@ Phases, one status line each; the first failure ends the run non-zero:
 After phase 3, field: kernel F (csrc/field_inv.cu) against its plain
 versions and Python's pow over Fr and Fp: batch_inverse at 2^16 entries
 (a tenth zero), at n = 1 and at an odd n, pow_fixed with a short exponent
-and with no bits; batch_inverse and inverse (pow_fixed over p - 2) at
-2^16 timed as in phase 3. Then the bench's field section
+and with no bits; batch_inverse at 2^16 and 2^18 and inverse (pow_fixed
+over p - 2) at 2^16 timed as in phase 3, batch_inverse beside its device
+ms before the divstep redesign (recorded figures); batch_inverse swept
+over the threads a launch aims for (which set the chunk) at 2^12, 2^16
+and 2^18, exact against its plain version in every cell, with the device
+ms of each, beside the product-tree design's recorded figures. Then the
+bench's field section
 (benchmarks.run_benchmarks, quick) with the counts at 0: F must launch
 there (its path launches); then the bench's chipcheck, every
 hand-written kernel against its plain version at a small size. The
 phase's seconds are printed.
+
+After field, any: kernel G (csrc/product_evals_any.cu, the product evals
+of any k and degree) against its plain version at (k, 2^16, 8), every
+pair live and 8193 live pairs, at (k, degree) = (4, 4), (5, 5), (1, 1),
+(2, 5) and (8, 8), timed as in phase 3; then its path at 2^16 entries,
+tail 0, the counts at 0 before each run: on cuda:0, run_sumcheck of
+ProductSumcheck (with initial_claim_product) at k = 4 and 5 and of
+DeviceProductTables at (k, degree) = (1, 1) and (2, 5); on a mesh of two
+shards of cuda:0, DeviceProductTables at all four. Kernel G must launch
+in each run, and every claim, proof and final must equal the same run on
+the CPU (the plain versions). G's launches there are timed by CUDA events
+beside the bound of the work its wrapper counted.
 
 Between phases 3 and 4, g1: the G1 kernels (csrc/g1.cu, rows_msm.cu,
 pippenger.cu) against their plain versions on the same CUDA tensors and
@@ -193,7 +210,8 @@ legacy and internal provers; the host tier and the mesh prove at
 T = 2^12.
 
 The last three lines are the kernels' JSON (every kernel, with each
-path's launches and figures; F's path is the bench's field section), the
+path's launches and figures; F's path is the bench's field section, G's
+its path on cuda:0), the
 nvidia-smi card line and the result JSON.
 """
 
@@ -284,6 +302,12 @@ G1_KERNELS = [
     ("scalar_digits", "zolt_tpu_torch/csrc/pippenger.cu",
      "zolt_tpu/pcs/hyperkzg.py:50 and zolt_tpu/msm/pippenger.py:45 "
      "(decode and _digits, on the host)"),
+]
+# Kernel G: (name, source, the JAX code it replaces: XLA, not Pallas).
+ANY_KERNELS = [
+    ("product_evals_any", "zolt_tpu_torch/csrc/product_evals_any.cu",
+     "zolt_tpu/parallel/stage_engine.py:173 (_evals_fixed) and "
+     "zolt_tpu/sumcheck/driver.py:92 (ProductSumcheck.round_evals)"),
 ]
 # Kernel F: (name, source, the JAX code it replaces: XLA, not Pallas).
 F_KERNELS = [
@@ -834,12 +858,170 @@ def schedule_sweep(torch, gen, stats: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Kernel G: product evals of any k and degree
+# ---------------------------------------------------------------------------
+
+# Kernel G's path at 2^ANY_LOG_N entries, tail 0: ProductSumcheck at
+# k = 4 and 5 and DeviceProductTables at (1, 1) and (2, 5) on cuda:0; the
+# engines at (4, 4), (5, 5), (1, 1) and (2, 5) on a mesh of ANY_SHARDS
+# shards of cuda:0. Kernel G timed alone at each (k, degree) of ANY_TIMED
+# (the first the JSON line's shape), and at 8193 live pairs.
+ANY_LOG_N = 16
+ANY_SUMCHECKS = (4, 5)
+ANY_ENGINES = ((1, 1), (2, 5))
+ANY_SHARDS = 2
+ANY_TIMED = ((4, 4), (5, 5), (1, 1), (2, 5), (8, 8))
+
+
+def check_any(torch, gen, stats: dict) -> None:
+    """Kernel G against product_evals_plain on the same CUDA tensors
+    (max_abs_err 0) at (k, 2^16, 8) for each (k, degree) of ANY_TIMED,
+    every pair live and 8193 live pairs, and timed as in phase 3."""
+    from zolt_tpu_torch.field import evals
+
+    n = 1 << ANY_LOG_N
+    for i, (k, deg) in enumerate(ANY_TIMED):
+        tabs = rand_tables(torch, gen, k, n, n)
+        err = 0
+        for live in (n // 2, 8193):
+            g = [(tabs, live, deg)]
+            err = max(err, max_abs(torch, evals.product_evals(g)[0],
+                                   evals.product_evals_plain(*g[0])))
+        if err:
+            raise AssertionError(f"kernel G differs from its plain version "
+                                 f"at k {k} degree {deg}: {err}")
+        g = [(tabs, n // 2, deg)]
+        name = "product_evals_any" + ("" if i == 0 else f"_k{k}_d{deg}")
+        timings(torch, stats, name, lambda: evals.product_evals(g),
+                lambda: evals.product_evals_plain(*g[0]),
+                *evals.work_any(g), f"({k}, 2^{ANY_LOG_N}, 8), degree {deg} "
+                f"({len(evals.descriptors(deg))} descriptors)", err,
+                phase="any", device_name=DEVICE_NAMES["product_evals_any"])
+
+
+class _EngineRounds:
+    """A sumcheck instance over a DeviceProductTables."""
+
+    def __init__(self, eng, rounds: int, degree: int):
+        self.eng, self.num_rounds, self.degree = eng, rounds, degree
+
+    def round_evals(self) -> list:
+        return self.eng.round_evals()
+
+    def bind(self, r: int) -> None:
+        self.eng.bind(r)
+
+
+def any_proofs(torch, stacks: dict, device=None, mesh=None) -> dict:
+    """Each case's sumcheck proof (compressed polys, challenges, final
+    claim, finals) over the factor stacks {(k, degree): (k, n, 8)}: with
+    `device`, ProductSumcheck (and initial_claim_product) for degree = k
+    in ANY_SUMCHECKS and DeviceProductTables for the others; with `mesh`,
+    DeviceProductTables on it for every case."""
+    from zolt_tpu_torch.parallel.stage_engine import DeviceProductTables
+    from zolt_tpu_torch.sumcheck import (ProductSumcheck,
+                                         initial_claim_product, run_sumcheck)
+    from zolt_tpu_torch.transcript import Blake2bTranscript
+
+    dev = device if mesh is None else mesh.devices[0]
+    out = {}
+    for (k, deg), st in stacks.items():
+        polys = list(st.to(dev))
+        rounds = st.shape[1].bit_length() - 1
+        claim = initial_claim_product(polys)
+        if mesh is None and k == deg and k in ANY_SUMCHECKS:
+            inst = ProductSumcheck(polys)
+            finals = inst.final_claims
+        else:
+            eng = DeviceProductTables(
+                polys, degree=deg,
+                **(dict(mesh=mesh) if mesh else dict(device=device)))
+            inst = _EngineRounds(eng, rounds, deg)
+            finals = eng.finals
+        pf = run_sumcheck(inst, Blake2bTranscript(b"any"), claim)
+        out[k, deg] = (claim, pf.compressed_polys, pf.challenges,
+                       pf.final_claim, finals())
+    return out
+
+
+def run_any(torch) -> dict:
+    """Kernel G: check_any, then its path (ANY_LOG_N, tail 0) on cuda:0
+    and on a mesh of ANY_SHARDS shards of cuda:0, the counts at 0 before
+    each: kernel G must launch in each, and every proof must equal the
+    plain versions' on the CPU. G's launches on cuda:0 are timed by CUDA
+    events, beside the bound of the work its wrapper counted."""
+    from zolt_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261019)
+    stats: dict = {}
+    check_any(torch, gen, stats)
+    n = 1 << ANY_LOG_N
+    cases = [(k, k) for k in ANY_SUMCHECKS] + list(ANY_ENGINES)
+    stacks = {c: rand_tables(torch, gen, c[0], n, n).cpu() for c in cases}
+    mesh = make_mesh(["cuda:0"] * ANY_SHARDS)
+    runs, secs = {}, {}
+    os.environ["ZOLT_TPU_DEVICE_TAIL"] = "0"
+    try:
+        t1 = time.perf_counter()
+        want = any_proofs(torch, stacks, device="cpu")
+        cpu_s = time.perf_counter() - t1
+        for where, kw in (("cuda:0", dict(device="cuda:0")),
+                          (f"mesh of {ANY_SHARDS}", dict(mesh=mesh))):
+            reset_launches()
+            t1 = time.perf_counter()
+            with launch_events(torch, "zfr_product_evals_any") as ev:
+                got = any_proofs(torch, stacks, **kw)
+            torch.cuda.synchronize()
+            secs[where] = round(time.perf_counter() - t1, 3)
+            launches, work = read_launches()
+            if got != want:
+                bad = [c for c in cases if got[c] != want[c]]
+                raise AssertionError(f"kernel G's path on {where} differs "
+                                     f"from the CPU plain run at {bad}")
+            if launches["product_evals_any"] <= 0:
+                raise AssertionError(f"kernel G did not launch on {where}")
+            figs = path_figures(work, {"product_evals_any": sum(ev)}, "any",
+                                f"kernel G's path on {where}",
+                                names=("product_evals_any",))
+            runs[where] = dict(launches=launches, events_ms=sum(ev),
+                               figures=figs["product_evals_any"])
+            say("any", f"on {where}: proofs of {cases} equal to the CPU "
+                       f"plain run's; launches {launches}; G's launches by "
+                       f"CUDA events {sum(ev):.4f} ms in {len(ev)}")
+    finally:
+        del os.environ["ZOLT_TPU_DEVICE_TAIL"]
+    secs.update(cpu_plain=round(cpu_s, 3),
+                phase=round(time.perf_counter() - t0, 3))
+    say("any", f"seconds {secs}")
+    return dict(stats=stats, runs=runs, seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # G1: kernels A-D, the commitments' two tiers, HyperKZG
 # ---------------------------------------------------------------------------
 
 # Kernel F at the bench field section's full size, 2^16 entries.
 FIELD_LOG_N = 16
 F_POW_BITS = (1, 0, 0, 1, 1, 0, 1)       # a short exponent, 0b1011001
+# F's batch_inverse swept over the threads a launch aims for
+# (inverse.TARGET_THREADS, which sets the chunk), at each size.
+F_SWEEP_LOG_N = (12, 16, 18)
+F_SWEEP_THREADS = (132 * 32, 132 * 64, 132 * 128, 132 * 256, 132 * 512)
+# F's batch_inverse before its redesign (a Fermat inverse a chunk, 379
+# dependent products; NVIDIA H100 80GB HBM3 at 700.00 W: at 2^16 this
+# script's field phase, at 2^18 `bench --only roofline`): recorded figures,
+# printed on a line of their own and kept out of the kernels line.
+PRIOR_F_DEVICE_MS = {16: 0.4034, 18: 0.4709}
+# The other design the sweep tried, a product tree a block of 256 chunks
+# with one divstep inverse a block, at each size's best target (132 x 32
+# at 2^12, 132 x 256 at 2^16, 132 x 512 at 2^18; this script's field
+# phase with both designs on an NVIDIA H100 80GB HBM3 at 700.00 W, against
+# 0.0357 / 0.0393 / 0.0579 ms for an inverse a chunk in the same run). It
+# was slower at every size and taken out: recorded figures, printed on a
+# line of their own.
+PRIOR_F_TREE_MS = {12: 0.0441, 16: 0.0480, 18: 0.0668}
 
 
 def field_words(torch, gen, n: int):
@@ -850,15 +1032,59 @@ def field_words(torch, gen, n: int):
     return w.contiguous()
 
 
+def inverse_sweep(torch, gen) -> list:
+    """F's batch_inverse over Fr at every thread target of F_SWEEP_THREADS
+    and each size of F_SWEEP_LOG_N (a tenth zero): exact against the plain
+    version, and its device ms (torch.profiler, 20 calls), beside the
+    product tree's recorded figure. The wrapper's target is restored
+    after."""
+    from zolt_tpu_torch.field import inverse, limb
+
+    chosen = inverse.TARGET_THREADS
+    rows = []
+    try:
+        for lg in F_SWEEP_LOG_N:
+            a = field_words(torch, gen, 1 << lg)
+            want = inverse.batch_inverse_plain(a, limb.FR_C)
+            for target in F_SWEEP_THREADS:
+                inverse.TARGET_THREADS = target
+                if not torch.equal(limb.batch_inverse(a), want):
+                    raise AssertionError(
+                        f"batch_inverse ({target} threads) differs from its "
+                        f"plain version at 2^{lg}")
+                ms = device_ms(torch, lambda: limb.batch_inverse(a), 20,
+                               "batch_inverse")
+                rows.append(dict(log_n=lg, target_threads=target,
+                                 chunk=inverse.chunk_of(1 << lg),
+                                 device_ms=round(ms, 4)))
+            here = [r for r in rows if r["log_n"] == lg]
+            best = min(here, key=lambda r: r["device_ms"])
+            say("field", f"batch_inverse sweep at 2^{lg}, exact in every "
+                         f"cell: "
+                         + "; ".join(f"{r['target_threads']} threads (c "
+                                     f"{r['chunk']}) {r['device_ms']:.4f}"
+                                     for r in here)
+                         + f" ms; fastest {best['target_threads']}, the "
+                           f"wrapper's {chosen}")
+            say("field", f"batch_inverse at 2^{lg} as a product tree a "
+                         f"block: {PRIOR_F_TREE_MS[lg]:.4f} ms (recorded, "
+                         f"not measured here)")
+    finally:
+        inverse.TARGET_THREADS = chosen
+    return rows
+
+
 def run_field(torch) -> dict:
     """Kernel F (csrc/field_inv.cu) against its plain versions and Python's
     pow, over Fr and Fp: batch_inverse at 2^16 entries, a tenth zero (each
     product x·y checked to be 1, which pins y to pow(x, p − 2, p); Python's
     pow itself on the first 4099), at n = 1 and at an odd n; pow_fixed
-    with a short exponent and with no bits (one). Times batch_inverse at 2^16 over Fr (CUDA events, the
-    device alone by torch.profiler, the bound of the work this input
-    needs, the plain version), and inverse (pow_fixed over p - 2) there.
-    Then the path: the bench's field section (quick, n = 2^12) with the
+    with a short exponent and with no bits (one). Times batch_inverse at
+    2^16 and 2^18 over Fr (CUDA events, the device alone by
+    torch.profiler, the bound of the work this input needs, the plain
+    version) beside its recorded figures before the divstep redesign,
+    sweeps its chunk (inverse_sweep), and times inverse (pow_fixed over
+    p - 2) at 2^16. Then the path: the bench's field section (quick, n = 2^12) with the
     counts at 0, whose batch_inverse launches are F's path launches, and
     the bench's chipcheck (every hand-written kernel against its plain
     version at a small size). Returns the figures."""
@@ -904,14 +1130,23 @@ def run_field(torch) -> dict:
                  f"and 4099; pow_fixed with {len(F_POW_BITS)} bits and with "
                  f"none (Python's pow)")
     stats: dict = {}
+    for lg, name in ((FIELD_LOG_N, "field_inv"), (18, "field_inv_2p18")):
+        a = field_words(torch, gen, 1 << lg)
+        nonzero = int((a != 0).any(dim=1).sum().item())
+        timings(torch, stats, name, lambda: limb.batch_inverse(a),
+                lambda: inverse.batch_inverse_plain(a, limb.FR_C),
+                *inverse.inverse_work(1 << lg, nonzero, limb.FR_C),
+                f"batch_inverse, Fr, 2^{lg} entries ({nonzero} non-zero), "
+                f"chunks of {inverse.chunk_of(1 << lg)}",
+                err, plain_iters=1, phase="field",
+                device_name="batch_inverse")
+        say("field", f"batch_inverse at 2^{lg}: device "
+                     f"{stats[name]['device_ms']:.4f} ms in this run; "
+                     f"{PRIOR_F_DEVICE_MS[lg]:.4f} ms before the redesign "
+                     f"(a Fermat inverse a chunk; recorded, not measured "
+                     f"here)")
+    stats["field_inv"]["sweep"] = inverse_sweep(torch, gen)
     a = field_words(torch, gen, n)
-    nonzero = int((a != 0).any(dim=1).sum().item())
-    timings(torch, stats, "field_inv", lambda: limb.batch_inverse(a),
-            lambda: inverse.batch_inverse_plain(a, limb.FR_C),
-            *inverse.inverse_work(n, nonzero, limb.FR_C),
-            f"batch_inverse, Fr, 2^{FIELD_LOG_N} entries ({nonzero} non-zero), "
-            f"chunks of {inverse.chunk_of(n)}", err, plain_iters=1,
-            phase="field", device_name="batch_inverse_kernel")
     bits = limb.FR_C.p_minus_2_bits
     timings(torch, stats, "field_inv_pow", lambda: limb.inverse(a),
             lambda: inverse.pow_fixed_plain(a, bits, limb.FR_C),
@@ -1759,6 +1994,7 @@ def counters() -> dict:
 
     return {"fold": fold.fold_many.counts,
             "product_evals": evals.product_evals.counts,
+            "product_evals_any": evals.counts_g,
             "gruen_round": gruen.gruen_round.counts,
             "g1_add": dev.pt_add.counts, "g1_double": dev.pt_double.counts,
             "g1_sum": dev.pt_sum.counts,
@@ -1783,6 +2019,7 @@ def entry_launches(c: dict) -> dict:
     return {"fold": c["fold"]["launches"],
             "product_evals_k2": pe["launches_k2"],
             "product_evals_k3": pe["launches_k3"],
+            "product_evals_any": c["product_evals_any"]["launches"],
             "gruen_round": c["gruen_round"]["launches"],
             "g1_add_double": (c["g1_add"]["launches"]
                               + c["g1_double"]["launches"]),
@@ -1803,6 +2040,7 @@ def read_launches() -> tuple[dict, dict]:
 
 # kernel -> the name torch.profiler shows for it on the device
 DEVICE_NAMES = {"fold": "fold_kernel", "product_evals": "product_evals_kernel",
+                "product_evals_any": "product_evals_any_kernel",
                 "gruen_round": "gruen_round_kernel",
                 "reduce_partials": "zfr_reduce_partials",
                 "row_plane_sums": "row_msm_kernel",
@@ -2179,7 +2417,8 @@ def run_slice(torch, log_t: int,
                      f"{work}")
         if on_dev["reduce_partials"]:
             raise AssertionError("a zfr_reduce_partials pass ran on the path")
-        for k in ("fold", "product_evals", "gruen_round", "row_plane_sums"):
+        for k in ("fold", "product_evals", "product_evals_any",
+                  "gruen_round", "row_plane_sums"):
             if on_dev[k] != work[k]["launches"]:
                 raise AssertionError(
                     f"{k} launches: the profiler saw {on_dev[k]}, the "
@@ -3051,10 +3290,12 @@ def run_mesh(torch, device_s: dict, canonical: bytes, kzg) -> dict:
 def kernels_json(stats: dict, launches: dict, path: dict,
                  sound_launches: dict, sound: dict, cli: dict, commits: dict,
                  kzg: dict, legacy: dict, internal: dict, mesh: dict,
-                 field: dict) -> list:
+                 field: dict, anyk: dict) -> list:
     """The kernels' entries of the JSON line. `launches` is the compat
     prove's (the main path; kernel A's: msm_mesh's, its one path; kernel
-    F's: the bench's field section, which no prove reaches); each
+    F's: the bench's field section, which no prove reaches; kernel G's:
+    its path on cuda:0, which no Jolt prove reaches, beside it under
+    shards2_ the same path on two shards of cuda:0); each
     other path's launches and figures sit beside it under its own prefix:
     sound_, cli_, batch_opening_, legacy_, internal_, opening_ (the
     internal prove with its batch opening) and mesh_ (the mesh phase's
@@ -3166,6 +3407,29 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                               if k.startswith(("bound_ms", "device_ms"))})
         entry.update(other_paths(name))
         kernels.append(entry)
+    for name, src, rep in ANY_KERNELS:
+        dev_run, mesh_run = (anyk["runs"][w] for w in anyk["runs"])
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=dev_run["launches"][name],
+                     path=f"run_sumcheck of ProductSumcheck at k = "
+                          f"{ANY_SUMCHECKS} and DeviceProductTables at "
+                          f"{ANY_ENGINES}, 2^{ANY_LOG_N} entries, tail 0, "
+                          f"on cuda:0",
+                     **{k: stats[name][k] for k in keys},
+                     shape=stats[name]["shape"],
+                     path_device_ms_events=dev_run["events_ms"],
+                     path_bound_ms=dev_run["figures"]["bound_ms"],
+                     path_bound_by=dev_run["figures"]["bound_by"],
+                     shards2_launches=mesh_run["launches"][name],
+                     shards2_path_device_ms_events=mesh_run["events_ms"],
+                     shards2_path_bound_ms=mesh_run["figures"]["bound_ms"],
+                     other_shapes={k2: {k: stats[k2][k]
+                                        for k in keys + ("shape",)}
+                                   for k2 in stats
+                                   if k2.startswith(name + "_k")},
+                     phase_seconds=anyk["seconds"])
+        entry.update(other_paths(name))
+        kernels.append(entry)
     for name, src, rep in F_KERNELS:
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
                      launches=field["launches"][name],
@@ -3175,6 +3439,9 @@ def kernels_json(stats: dict, launches: dict, path: dict,
                      shape=stats[name]["shape"],
                      pow_shape={k: stats[name + "_pow"][k]
                                 for k in keys + ("shape",)},
+                     shape_2p18={k: stats[name + "_2p18"][k]
+                                 for k in keys + ("shape",)},
+                     sweep=stats[name]["sweep"],
                      phase_seconds=field["seconds"])
         entry.update(other_paths(name))
         kernels.append(entry)
@@ -3236,6 +3503,9 @@ def main() -> int:
     field = run_field(torch)
     stats.update(field["stats"])
     done("field")
+    anyk = run_any(torch)
+    stats.update(anyk["stats"])
+    done("any")
     kzg_srs = check_g1(torch, stats, args.log_t)
     done("g1")
     launches, path, compat_proof = run_slice(torch, args.log_t, args.profile)
@@ -3263,7 +3533,8 @@ def main() -> int:
     say("done", f"seconds by phase: {phase_s}")
 
     kernels = kernels_json(stats, launches, path, sound_launches, sound, cli,
-                           commits, kzg, legacy, internal, mesh, field)
+                           commits, kzg, legacy, internal, mesh, field,
+                           anyk)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

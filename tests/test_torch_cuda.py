@@ -26,9 +26,12 @@ affine form, B and the Pippenger
 also against the native C tier) and HyperKZG on the Pippenger; the
 sound prove at T = 2^10 on the GPU (its one-hot cubes through kernel B)
 against the host tier's bytes; the legacy and internal proves at
-T = 2^10 on the GPU against the host tiers' bytes; and the generic
-product sumcheck (k = 2, 3 on the kernels against the plain versions;
-k = 1, 5 raise). Every wrapper's launch counter must
+T = 2^10 on the GPU against the host tiers' bytes; kernel G (the product
+evals of any k and degree) alone, mixed with kernels 2-3 in one call and
+in launches of more than 16 descriptors; the generic product sumcheck
+(every k on the kernels against the plain versions); kernel F's divstep
+batch inverse with chunks of zeros beside chunks of values. Every
+wrapper's launch counter must
 go up by exactly one per launch. Tolerance: exact (equal words), since every
 value is a canonical field element.
 """
@@ -142,6 +145,77 @@ def test_grouped_launch_of_more_than_sixteen_groups(gen):
     assert evals.product_evals.counts["launches"] == before + 2
     for g, out in zip(groups, got):
         assert torch.equal(out, evals.product_evals_plain(*g))
+
+
+# ---------------------------------------------------------------------------
+# Kernel G (csrc/product_evals_any.cu): product evals of any k and degree
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,degrees", [
+    (1, (0, 1, 2, 5)), (2, (4, 5, 9)), (3, (4, 6)), (4, (0, 3, 4, 6)),
+    (5, (5, 7)), (8, (2, 8, 11))])
+@pytest.mark.parametrize("live_pairs", [0, 1, 37, 1000, 8193, 1 << 17])
+def test_product_evals_any_kernel_matches_plain(gen, k, degrees, live_pairs):
+    """Kernel G, one group per call: every point summed, in runs of four;
+    words equal to the plain version's."""
+    n = max(2048, 2 * live_pairs)
+    tabs = _tables(gen, k, n, 2 * live_pairs)
+    for degree in degrees:
+        before = dict(evals.counts_g)
+        g = (tabs, live_pairs, degree)
+        got, = evals.product_evals([g])
+        torch.cuda.synchronize()
+        c = evals.counts_g
+        assert c["launches"] == before["launches"] + 1
+        assert c["descriptors"] == before["descriptors"] + \
+            len(evals.descriptors(degree))
+        assert torch.equal(got, evals.product_evals_plain(*g)), degree
+
+
+def test_product_evals_any_mixed_with_kernels_2_3(gen):
+    """Groups of every k in one call: the k = 2, 3 groups of degree <= 3
+    take one launch of kernels 2-3, the others two launches of kernel G
+    (21 descriptors, 16 a launch), three times back to back (the tickets
+    reset); every group equal to the plain version."""
+    shapes = [(1, 1), (2, 2), (4, 4), (3, 3), (2, 5), (5, 7), (3, 4),
+              (1, 0), (8, 8), (2, 3), (6, 2), (8, 11), (7, 7), (4, 6)]
+    groups = [(_tables(gen, k, 4096, 2 * live), live, deg)
+              for (k, deg), live in zip(shapes, (2048, 1999, 1, 77, 0, 2048,
+                                                 513, 9, 1000, 8, 2047, 64,
+                                                 1500, 3))]
+    want = [evals.product_evals_plain(*g) for g in groups]
+    descs = sum(len(evals.descriptors(d)) for t, _, d in groups
+                if not evals.on_kernels_23(t.shape[0], d))
+    assert descs == 21
+    for _ in range(3):
+        b23 = evals.product_evals.counts["launches"]
+        bg = evals.counts_g["launches"]
+        got = evals.product_evals(groups)
+        torch.cuda.synchronize()
+        assert evals.product_evals.counts["launches"] == b23 + 1
+        assert evals.counts_g["launches"] == bg + 2
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert not evals._scratch_g(groups[0][0].device).any()
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_product_sumcheck_of_k_1_or_above_3_on_cuda(gen, k):
+    """A product sumcheck of k = 1 or 5 factors on the card takes kernel
+    G, whose evals equal product_evals_plain's every round."""
+    from zolt_tpu_torch.field import fold
+    from zolt_tpu_torch.sumcheck import ProductSumcheck
+
+    inst = ProductSumcheck([_tables(gen, 1, 256, 256)[0] for _ in range(k)])
+    for r in range(3, 3 + inst.num_rounds):
+        before = evals.counts_g["launches"]
+        g = (inst.tabs, inst.tabs.shape[1] // 2, k)
+        got = evals.product_evals([g])[0]
+        assert evals.counts_g["launches"] == before + 1
+        assert torch.equal(got, evals.product_evals_plain(*g))
+        assert inst.round_evals() == \
+            evals.limb.decode(evals.product_evals_plain(*g))
+        inst.tabs = fold.fold_plain(inst.tabs, r, inst.tabs.shape[1] // 2)
 
 
 @pytest.mark.parametrize("k", [2, 3])
@@ -597,19 +671,15 @@ def test_legacy_and_internal_proves_on_cuda_equal_the_host_tier(
     assert blobs["cuda"] == blobs["cpu"]
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_product_sumcheck_on_cuda(gen, k):
-    """k = 2, 3: the rounds on the kernels equal the plain versions' on the
-    CPU; k = 1 and 5 raise (the product-evals kernel has K = 2, 3)."""
+    """Every k on the kernels (2, 3 on kernels 2-3, the others on kernel
+    G): the claim and the rounds equal the plain versions' on the CPU."""
     from zolt_tpu_torch.sumcheck import (ProductSumcheck,
                                          initial_claim_product, run_sumcheck)
     from zolt_tpu_torch.transcript import Blake2bTranscript
 
     tabs = [_tables(gen, 1, 64, 64)[0] for _ in range(k)]
-    if k not in (2, 3):
-        with pytest.raises(NotImplementedError, match="K = 2 and 3"):
-            ProductSumcheck(tabs)
-        return
     claim = initial_claim_product(tabs)
     assert claim == initial_claim_product([t.cpu() for t in tabs])
     got = run_sumcheck(ProductSumcheck(tabs), Blake2bTranscript(b"s"), claim)
@@ -702,10 +772,10 @@ def test_msm_mesh_on_four_shards_of_one_card(gen):
 @pytest.mark.parametrize("field", ["fr", "fp"])
 @pytest.mark.parametrize("n", [1, 7, 1000, 16897, (1 << 16) + 3, 1 << 20])
 def test_batch_inverse_kernel_matches_plain(gen, field, n):
-    """Kernel F's batch inversion: words equal to the plain version's (the
-    same chunks) and, on a sample, to Python's pow; one launch a call;
-    chunks of 1 to 62 entries, n no multiple of the chunk, zeros to
-    zeros."""
+    """Kernel F's batch inversion (the divstep inverse a chunk): words
+    equal to the plain version's (the same chunks) and, on a sample, to
+    Python's pow; one launch a call; chunks of 1 to 32 entries, n no
+    multiple of the chunk, zeros to zeros."""
     from zolt_tpu_torch.field import inverse, limb
 
     f = limb.FR_C if field == "fr" else limb.FP_C
@@ -720,7 +790,32 @@ def test_batch_inverse_kernel_matches_plain(gen, field, n):
         pow(v, p - 2, p) for v in limb.decode(a[:k], f)]
 
 
-def test_batch_inverse_kernel_takes_batches_and_views(gen):
+@pytest.mark.parametrize("field", ["fr", "fp"])
+@pytest.mark.parametrize("n", [(1 << 16) - 1, (1 << 16) + 3])
+def test_batch_inverse_kernel_at_max_chunk(gen, monkeypatch, field, n):
+    """Chunks of MAX_CHUNK entries (n of 2.1M and more at the shipped
+    TARGET_THREADS; here 1024 threads a launch): words equal to the plain
+    version's and, on a sample, to Python's pow; a tenth of the entries
+    zero."""
+    from zolt_tpu_torch.field import inverse, limb
+
+    monkeypatch.setattr(inverse, "TARGET_THREADS", 1024)
+    assert inverse.chunk_of(n) == inverse.MAX_CHUNK
+    f = limb.FR_C if field == "fr" else limb.FP_C
+    p = f.params.p
+    a = field_words(torch, gen, n)
+    a[::10] = 0
+    got = limb.batch_inverse(a, f)
+    assert torch.equal(got, inverse.batch_inverse_plain(a, f))
+    assert not got[::10].any()
+    assert limb.words_to_ints(limb.from_mont(got[1:65], f)) == [
+        pow(v, p - 2, p) for v in limb.decode(a[1:65], f)]
+
+
+def test_batch_inverse_kernel_takes_batches_and_views(gen, monkeypatch):
+    """(n, m, 8) batches, strided views, an all-zero batch, and chunks of
+    zeros beside chunks of values (an all-zero chunk's running product is
+    one, which the divstep inverse takes to one)."""
     from zolt_tpu_torch.field import inverse, limb
 
     a = field_words(torch, gen, 3 * 1000)
@@ -732,6 +827,13 @@ def test_batch_inverse_kernel_takes_batches_and_views(gen):
     # an all-zero batch, and every chunk all zero
     z = torch.zeros((40000, 8), dtype=torch.int32, device="cuda")
     assert not limb.batch_inverse(z).any()
+    # 4096 chunks of 16 strided entries: chunks 0-99 all zero
+    monkeypatch.setattr(inverse, "TARGET_THREADS", 4096)
+    w = field_words(torch, gen, 1 << 16)
+    w.view(16, 4096, 8)[:, :100] = 0
+    got = limb.batch_inverse(w)
+    assert torch.equal(got, inverse.batch_inverse_plain(w, limb.FR_C))
+    assert not got.view(16, 4096, 8)[:, :100].any()
 
 
 @pytest.mark.parametrize("field", ["fr", "fp"])

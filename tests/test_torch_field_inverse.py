@@ -13,13 +13,27 @@ runs the kernel's chunked Montgomery trick, so its chunks are checked
 here too: chunks of 1 to 5 entries and of 64 (n sets the chunk; a small
 thread target makes small n take large chunks), n no multiple of the
 chunk, all-zero chunks, n = 1 and (n, m, 8) batches. On a tensor that lies neither on
-the CPU nor on a card the wrappers raise: they have no fallback. About
-30 s on an 8-core CPU box, most of it XLA compiling JAX's functions.
+the CPU nor on a card the wrappers raise: they have no fallback.
+
+The kernel's divstep inverse (csrc/divstep.cuh, field_inv.cu
+mont_inverse) runs only on a card; its word-exact model
+(inverse.divstep_inverse_model: the same 30-divstep batches, the same
+20 of them, the same final product by R^3 mod p) is held here to
+pow(x, p − 2, p) over Fr and Fp on 0, 1, p − 1, powers of two, R mod p,
+the values just under p, the inputs of a seeded sample whose divsteps run
+longest, and hypothesis-drawn values; the constants the kernel's source
+spells out (each modulus's 30-bit limbs, p^{-1} mod 2^30, R^3 mod p) are
+held to their definitions. About 35 s on an 8-core CPU box, most of it
+XLA compiling JAX's functions.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from zolt_tpu.field import limb as jlimb
 from zolt_tpu_torch.field import inverse, limb
@@ -159,7 +173,8 @@ def test_chunk_of_and_work():
     assert inverse.chunk_of(1) == 1
     assert inverse.chunk_of(inverse.TARGET_THREADS) == 1
     assert inverse.chunk_of(inverse.TARGET_THREADS + 1) == 2
-    assert inverse.chunk_of(1 << 16) == 4
+    assert inverse.chunk_of(1 << 16) == 2
+    assert inverse.chunk_of(1 << 18) == 8
     assert inverse.chunk_of(1 << 30) == inverse.MAX_CHUNK
     # the top bit of p - 2 is bit 253 for both moduli (the kernel starts
     # its Fermat chain there)
@@ -200,3 +215,120 @@ def test_kernel_library_raises_without_nvcc():
         pytest.skip("nvcc is present: the library builds")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.kernels()
+
+
+# -- the divstep inverse's model ---------------------------------------------
+
+_R = 1 << 256
+
+
+def _want(x: int, p: int) -> int:
+    """The word of a^{-1}R for the word x = aR: pow(x, p − 2, p)·R^2."""
+    return pow(x, p - 2, p) * _R * _R % p
+
+
+def _hddivsteps(x: int, p: int) -> int:
+    """Divsteps (half-delta form, delta = 1/2 at the start, as the kernel
+    runs them) until g = 0, from f = p, g = x: one at a time on exact
+    integers."""
+    f, g, delta, n = p, x, 1, 0          # delta in halves: 1 is 1/2
+    while g:
+        if delta > 0 and g & 1:
+            delta, f, g = 2 - delta, g, (g - f) >> 1
+        elif g & 1:
+            delta, g = delta + 2, (g + f) >> 1
+        else:
+            delta, g = delta + 2, g >> 1
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_divstep_model_on_edge_inputs(name):
+    """0, 1, 2, p − 1 and the values just under p, every power of two
+    below p, R mod p and R^2 mod p: the model's word equals
+    pow(x, p − 2, p)·R^2 mod p, the Montgomery form of a^{-1} for x = aR;
+    zero maps to zero."""
+    f = FIELDS[name][0]
+    p = f.params.p
+    xs = ([0, 1, 2, _R % p, _R * _R % p] + [p - i for i in range(1, 9)]
+          + [1 << i for i in range(p.bit_length() - 1)])
+    for x in xs:
+        assert inverse.divstep_inverse_model(x, f) == _want(x, p), hex(x)
+    assert inverse.divstep_inverse_model(0, f) == 0
+    # the word of one (R mod p) inverts to itself: an all-zero chunk's
+    # running product
+    assert inverse.divstep_inverse_model(_R % p, f) == _R % p
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_divstep_model_on_its_longest_inputs(name):
+    """The inputs of a seeded sample of 3000 whose divsteps run longest
+    (each counted one divstep at a time) take at most 590 of the kernel's
+    600, and the model inverts them; so do x and p − x of each."""
+    f = FIELDS[name][0]
+    p = f.params.p
+    rng = np.random.default_rng(13)
+    xs = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(3000)]
+    counts = sorted(((_hddivsteps(x, p), x) for x in xs), reverse=True)
+    steps = inverse.DIVSTEP_BATCH * inverse.DIVSTEP_BATCHES
+    assert steps == 600
+    assert counts[0][0] <= 590 < steps
+    for _, x in counts[:8]:
+        for y in (x, p - x):
+            assert inverse.divstep_inverse_model(y, f) == _want(y, p)
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.data())
+def test_divstep_model_on_drawn_inputs(data):
+    name = data.draw(st.sampled_from(sorted(FIELDS)))
+    f = FIELDS[name][0]
+    p = f.params.p
+    x = data.draw(st.integers(min_value=0, max_value=p - 1))
+    got = inverse.divstep_inverse_model(x, f)
+    assert got == (_want(x, p) if x else 0)
+
+
+def _switch_words(src: str, fn: str) -> list[int]:
+    """The values of a `switch (i)` constant function in a kernel source,
+    in case order, the default last."""
+    body = src[src.index(fn):]
+    body = body[: body.index("}\n    }")]
+    return [int(v.rstrip("u"), 16) for v in
+            re.findall(r"return (0x[0-9a-f]+u?);", body)]
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_divstep_constants_match_their_definitions(name):
+    """The final constant is R^3 mod p, and one Montgomery product by it
+    takes x^{-1} to the Montgomery form of a^{-1}; csrc/field_inv.cu
+    spells it out word by word, and csrc/divstep.cuh the modulus's 30-bit
+    limbs and p^{-1} mod 2^30, each equal to its definition."""
+    f = FIELDS[name][0]
+    p = f.params.p
+    c = inverse.divstep_constant(f)
+    assert c == pow(2, 768, p)
+    a = 0x1234_5678_9ABC_DEF0 % p
+    x = a * _R % p
+    r_inv = pow(_R, -1, p)
+    assert pow(x, p - 2, p) * c * r_inv % p == pow(a, p - 2, p) * _R % p
+    csrc = os.path.join(os.path.dirname(inverse.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "field_inv.cu")) as fh:
+        inv_src = fh.read()
+    with open(os.path.join(csrc, "divstep.cuh")) as fh:
+        div_src = fh.read()
+    mod = {"fr": "FrMod", "fp": "FpMod"}[name]
+    r3 = _switch_words(inv_src[inv_src.index(f"struct Inv<zfr::{mod}>"):],
+                       "r3(int i)")
+    assert r3 == [(c >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    div = {"fr": "FrDiv", "fp": "FpDiv"}[name]
+    part = div_src[div_src.index(f"struct {div}"):]
+    assert _switch_words(part, "p30(int i)") == \
+        [(p >> (30 * i)) & ((1 << 30) - 1) for i in range(9)]
+    inv30 = re.search(r"INV30 = (0x[0-9a-f]+)u;", part).group(1)
+    assert int(inv30, 16) == pow(p, -1, 1 << 30)
+    assert re.search(r"DIVSTEP_BATCH = (\d+);", div_src).group(1) == \
+        str(inverse.DIVSTEP_BATCH)
+    assert re.search(r"DIVSTEP_BATCHES = (\d+);", div_src).group(1) == \
+        str(inverse.DIVSTEP_BATCHES)

@@ -329,13 +329,19 @@ def test_field_ptx_constants(name, value):
 
 
 def test_evals_wrapper_checks_k_and_degree():
+    """Any k >= 1 and degree >= 0 is taken (kernels 2-3 or G on a card,
+    the plain version here); k = 0, a negative degree, a live count out of
+    range and a tensor with no kernel raise."""
     tabs = _tables(51, 3, 8, 8)
-    with pytest.raises(ValueError):
-        evals.product_evals([(tabs, 4, 4)])
-    with pytest.raises(ValueError, match="k = 2, 3"):
-        evals.product_evals([(tabs, 4, 2), (_tables(52, 4, 8, 8), 4, 2)])
-    with pytest.raises(ValueError, match="k = 2, 3"):
-        evals.product_evals([(tabs[:1], 4, 2)])
+    groups = [(tabs, 4, 4), (_tables(52, 4, 8, 8), 4, 2), (tabs[:1], 4, 2)]
+    got = evals.product_evals(groups)
+    assert [tuple(g.shape) for g in got] == [(5, 8), (3, 8), (3, 8)]
+    for g, out in zip(groups, got):
+        assert torch.equal(out, evals.product_evals_plain(*g))
+    with pytest.raises(ValueError, match="k >= 1"):
+        evals.product_evals([(tabs[:0], 4, 2)])
+    with pytest.raises(ValueError, match="degree -1"):
+        evals.product_evals([(tabs, 4, -1)])
     with pytest.raises(ValueError, match="out of range"):
         evals.product_evals([(tabs, 5, 2)])
     with pytest.raises(ValueError, match="no kernel"):

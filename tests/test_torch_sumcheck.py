@@ -5,9 +5,9 @@ Inputs are canonical field elements from numpy seeds; each table is
 encoded once by the JAX package and carried to the port through
 `limb.from_jax_limbs` (the same residues). On CPU tensors the port's
 bind_low and ProductSumcheck run the plain versions of the fold and the
-product evals (kernels 1-3); k = 1 and k = 5 take plain torch, as JAX
-does; on a CUDA tensor they raise (the GPU check skips here). Tolerance:
-exact (equal ints, equal compressed polys, challenges and claims).
+product evals (kernels 1-3 and G) for every k; on a card k = 1 and 5 take
+kernel G (tests/test_torch_cuda.py). Tolerance: exact (equal ints, equal
+compressed polys, challenges and claims).
 
 About 25 s in one process on an 8-core CPU box, nearly all of it XLA
 compiling the JAX references' limb ops at each table shape.
@@ -103,15 +103,3 @@ def test_initial_claim_of_one_entry_is_the_product():
     a, b = _ints(20, 1), _ints(21, 1)
     got = initial_claim_product([limb.encode(a), limb.encode(b)])
     assert got == a[0] * b[0] % P
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 5])
-def test_product_sumcheck_of_k_1_or_above_3_raises_on_cuda(k):
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the kernels run only on a GPU")
-    tabs = [limb.encode(_ints(30 + j, 4), device="cuda") for j in range(k)]
-    with pytest.raises(NotImplementedError, match="K = 2 and 3"):
-        ProductSumcheck(tabs)
-    with pytest.raises(NotImplementedError, match="K = 2 and 3"):
-        initial_claim_product(tabs)

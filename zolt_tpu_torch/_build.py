@@ -25,8 +25,9 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "gruen_round.cu", "g1.cu",
-                  "rows_msm.cu", "pippenger.cu", "field_inv.cu")
+KERNEL_SOURCES = ("fold.cu", "product_evals.cu", "product_evals_any.cu",
+                  "gruen_round.cu", "g1.cu", "rows_msm.cu", "pippenger.cu",
+                  "field_inv.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -112,6 +113,8 @@ def kernels() -> KernelLib:
     lib.zfr_fold.restype = I
     lib.zfr_product_evals.argtypes = [P, I, P, P]
     lib.zfr_product_evals.restype = I
+    lib.zfr_product_evals_any.argtypes = [P, I, P, P]
+    lib.zfr_product_evals_any.restype = I
     lib.zfr_gruen_round.argtypes = [P, P]
     lib.zfr_gruen_round.restype = I
     L = ctypes.c_longlong

@@ -265,7 +265,8 @@ def _roofline_line(report, name: str, sec: float, work) -> None:
 
 def bench_roofline(report, quick: bool, device) -> None:
     """Each hand-written Fr kernel at steady state against its bound (the
-    bytes and IMADs its wrapper counts), and the card's copy bandwidth by
+    bytes and IMADs its wrapper counts; G at k = 4 and 5), and the card's
+    copy bandwidth by
     a stream over a large int32 tensor, measured on the same card."""
     if not _on_cuda(device):
         report("Roofline: skipped on the CPU (the bounds are the H100's)")
@@ -297,6 +298,11 @@ def bench_roofline(report, quick: bool, device) -> None:
         sec = _kernel_time(lambda: evals.product_evals(g), 16, device=device)
         _roofline_line(report, f"product evals k={k} (degree {k})", sec,
                        evals.work(g))
+    for k in (4, 5):
+        g = [(_tables(rng, k, n, device), n // 2, k)]
+        sec = _kernel_time(lambda: evals.product_evals(g), 16, device=device)
+        _roofline_line(report, f"product evals any, k={k} (G)", sec,
+                       evals.work_any(g))
     # the Gruen round's eval over n/2 pairs of stage 1's split eq: E_out
     # at level 8 and E_in at level h_in
     pairs = n // 2
@@ -443,7 +449,8 @@ def _same(got, want) -> bool:
 
 def bench_chipcheck(report, quick: bool, device) -> None:
     """On-card exactness of every hand-written kernel at a small size:
-    the fold, the product evals (k = 2 and 3), the Gruen round (eval, fold
+    the fold, the product evals (k = 2 and 3; G at k = 1-5 and degrees
+    0-5), the Gruen round (eval, fold
     then eval), kernel A (pt_add, pt_double, pt_sum), B (the row MSMs), C
     and D (the Pippenger's bucket and window sums; affine, since a sum's
     Jacobian words depend on its order), E (the scalars' digits) and F
@@ -477,6 +484,15 @@ def bench_chipcheck(report, quick: bool, device) -> None:
         g = (tabs[:k].contiguous(), n // 2, k)
         check(f"product evals k={k}, 2^11 pairs", evals.product_evals([g])[0],
               evals.product_evals_plain(*g))
+    # G: one call of every k and degree below, kernel G's groups beside a
+    # kernel 2-3 one; degrees 4 and 5 take two descriptors
+    t5 = _tables(rng, 5, n, device)
+    gs = [(t5[:k].contiguous(), live, d) for k, d, live in (
+        (1, 1, n // 2), (1, 3, 77), (2, 5, n // 2), (4, 4, n // 2 - 1),
+        (5, 5, n // 2), (2, 2, 100), (3, 0, 0))]
+    for g, got in zip(gs, evals.product_evals(gs)):
+        check(f"product evals any (G), k={g[0].shape[0]} degree {g[2]}, "
+              f"{g[1]} pairs", got, evals.product_evals_plain(*g))
     ab = tabs[:2].contiguous()
     e_out = _tables(rng, 1, 1 << 8, device)[0]
     e_in = _tables(rng, 1, 1 << 3, device)[0]

@@ -16,21 +16,26 @@
 // Bound on Hopper: integer products, not bytes. A Montgomery product is
 // 272 IMADs (field_ptx.cuh CIOS); an element moves 64 bytes. pow_fixed is a
 // thread an element, its square-and-multiply chain in registers.
-// batch_inverse is the Montgomery trick a thread a chunk of c entries, the
-// chunk's entries strided by the thread count (entry t + j*T is entry j of
+// batch_inverse is the Montgomery trick over chunks of c entries, the
+// chunk's entries strided by the chunk count (entry t + j*T is entry j of
 // chunk t), so a warp reads 32 neighbouring elements at each step:
 //   1. the running product of the chunk's non-zero entries, each prefix
 //      stored in `out` (zero entries store it unchanged);
-//   2. one Fermat inverse of the chunk's product (253 squarings from the
-//      top bit of p - 2, which is bit 253 for both moduli);
+//   2. the inverse of the chunk's product by the fixed-length divstep
+//      inverse (divstep.cuh: 20 batches of 30 divsteps on signed 30-bit
+//      limbs, a chain of some 35 µs on an H100 where the Fermat chain it
+//      replaced, 379 dependent Montgomery products, took some 380 µs;
+//      PERF.md), then one Montgomery product by R^3 mod p: the divsteps
+//      invert the word x = aR, and x^{-1}·R^3·R^{-1} = a^{-1}R;
 //   3. back-substitution from the chunk's last entry: out = inv * prefix
 //      of the entries before it, inv *= entry.
-// Three products an entry and one Fermat inverse a chunk; the wrapper
-// picks c so that the launch has about 132 x 128 threads (field/inverse.py
-// chunk_of). The Fermat inverse is one chain of dependent products, so a
-// launch costs at least that chain's latency, whatever n.
+// Three products an entry and one inverse a chunk; the wrapper picks c
+// so that the launch has about 132 x 256 threads (field/inverse.py
+// chunk_of, from chip_smoke.py's sweep). A block-level product tree with
+// one inverse a block was slower at every size swept (PERF.md).
 #include <cuda_runtime.h>
 
+#include "divstep.cuh"
 #include "field_ptx.cuh"
 
 namespace {
@@ -54,24 +59,52 @@ __device__ __forceinline__ bool is_zero(const Fr& a) {
     return o == 0u;
 }
 
-// Word k of p - 2 (p's low word is odd and above 2: no borrow).
+// Each field's divstep constants and R^3 mod p.
 template <class M>
-__device__ __forceinline__ uint32_t exp_word(int k) {
-    return M::word(k) - (k == 0 ? 2u : 0u);
-}
+struct Inv;
 
-// a^(p-2): square-and-multiply from bit 252 with the accumulator at a
-// (bit 253, the top bit of p - 2). inverse(0) = 0.
-template <class M>
-__device__ Fr fermat_inverse(const Fr& a) {
-    Fr acc = a;
-#pragma unroll 1
-    for (int i = 252; i >= 0; --i) {
-        acc = zfr::mont_mul<M>(acc, acc);
-        if ((exp_word<M>(i >> 5) >> (i & 31)) & 1u)
-            acc = zfr::mont_mul<M>(acc, a);
+template <>
+struct Inv<zfr::FrMod> {
+    using D = zfr::FrDiv;
+    static __device__ __forceinline__ uint32_t r3(int i) {
+        switch (i) {
+            case 0: return 0xb4bf0040u;
+            case 1: return 0x5e94d8e1u;
+            case 2: return 0x1cfbb6b8u;
+            case 3: return 0x2a489cbeu;
+            case 4: return 0xa19fcfedu;
+            case 5: return 0x893cc664u;
+            case 6: return 0x7fcc657cu;
+            default: return 0x0cf8594bu;
+        }
     }
-    return acc;
+};
+
+template <>
+struct Inv<zfr::FpMod> {
+    using D = zfr::FpDiv;
+    static __device__ __forceinline__ uint32_t r3(int i) {
+        switch (i) {
+            case 0: return 0xda1530dfu;
+            case 1: return 0xb1cd6dafu;
+            case 2: return 0xa7283db6u;
+            case 3: return 0x62f210e6u;
+            case 4: return 0x0ada0afbu;
+            case 5: return 0xef7f0b0cu;
+            case 6: return 0x2d592544u;
+            default: return 0x20fd6e90u;
+        }
+    }
+};
+
+// The Montgomery form of a^{-1} from that of a (0 -> 0).
+template <class M>
+__device__ __noinline__ Fr mont_inverse(const Fr& a) {
+    Fr y, c;
+    zfr::divstep_inverse<typename Inv<M>::D>(a.w, y.w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c.w[i] = Inv<M>::r3(i);
+    return zfr::mont_mul<M>(y, c);
 }
 
 template <class M>
@@ -107,7 +140,7 @@ batch_inverse_kernel(const uint32_t* a, uint32_t* out, long long n,
         if (!is_zero(x)) run = zfr::mont_mul<M>(run, x);
         zfr::store(out, i, run);
     }
-    Fr inv = fermat_inverse<M>(run);
+    Fr inv = mont_inverse<M>(run);
 #pragma unroll 1
     for (int j = c - 1; j >= 0; --j) {
         const long long i = t + j * nchunks;

@@ -15,18 +15,24 @@ call them.
 The batch inversion is the Montgomery trick over chunks of c entries
 (`chunk_of`): entry t + j·T of the flattened batch is entry j of chunk t,
 T = ceil(m / c) chunks, so neighbouring threads read neighbouring entries.
-A chunk's running product of its non-zero entries, one Fermat inverse of
-that product, then back-substitution; zeros are written as zeros. Every
-result is a canonical residue, so the words equal JAX's, whose prefix and
-suffix scans group the products otherwise.
+A chunk's running product of its non-zero entries, its inverse, then
+back-substitution; zeros are written as zeros. On the card the inverse is
+the fixed-length divstep inverse of csrc/divstep.cuh (Bernstein-Yang
+safegcd: DIVSTEP_BATCHES batches of DIVSTEP_BATCH divsteps on signed
+30-bit limbs) and one Montgomery product by `divstep_constant`;
+`divstep_inverse_model` is its word-exact model in Python ints, which the
+CPU tests hold to Python's pow (the kernel runs only on a card). The
+plain version takes a Fermat inverse a chunk: every result is a
+canonical residue, so the words equal the kernel's and JAX's, whose
+prefix and suffix scans group the products otherwise.
 
 Counters, plain integers in `pow_fixed.counts` and `batch_inverse.counts`:
 "launches", "elements", and the "bytes" and "imads" the function needs
 (`pow_work`, `inverse_work`; batch_inverse counts every entry as non-zero,
 since it does not read the data back to the host). They count the
-function's work, not the kernel's: a batch inversion needs one Fermat
-inverse, whatever number of chunks the kernel inverts, so the chunks'
-extra inverses are the kernel's cost and show against the bound.
+function's work, not the kernel's: a batch inversion needs one inverse,
+whatever number of chunks the kernel inverts, so the chunks' extra
+inverses are the kernel's cost and show against the bound.
 """
 
 from __future__ import annotations
@@ -38,21 +44,29 @@ import torch
 from .. import _build
 from . import limb
 
-# Threads a launch aims for: 132 SMs x 128. Fewer threads leave the
-# integer pipes idle while each waits on its chain of dependent products;
-# more chunks pay a Fermat inverse (253 squarings) each.
-TARGET_THREADS = 132 * 128
+# Threads a launch aims for, and the most entries a chunk: a chunk costs
+# an inverse and a chain of 3c dependent products. Set from
+# chip_smoke.py's sweep over 132 x 32 .. 132 x 512 threads at 2^12, 2^16
+# and 2^18 on an H100: 132 x 256 was the fastest at 2^16 and 2^18 and tied
+# at 2^12, and faster than one inverse a block of 256 chunks through a
+# product tree at every size (PERF.md).
+TARGET_THREADS = 132 * 256
 MAX_CHUNK = 64
 _FIELDS = {"fr": 0, "fp": 1}      # csrc/field_inv.cu field ids
+# csrc/divstep.cuh: divsteps a transition matrix, and batches an inverse
+# (600 divsteps; 590 take any input below 2^256 to g = 0).
+DIVSTEP_BATCH = 30
+DIVSTEP_BATCHES = 20
 
 
 def chunk_of(m: int) -> int:
-    """Entries a thread inverts with one Fermat inverse, for m entries."""
+    """Entries a thread takes through one running product, for m
+    entries."""
     return max(1, min(MAX_CHUNK, -(-m // TARGET_THREADS)))
 
 
 def fermat_products(f: limb.FieldConst) -> int:
-    """Montgomery products of one Fermat inverse in the kernel: a
+    """Montgomery products of one Fermat inverse (the plain version's): a
     square-and-multiply from the top bit of p − 2 (bit 253 for both
     moduli), which starts the accumulator at the base."""
     bits = f.p_minus_2_bits
@@ -71,11 +85,87 @@ def inverse_work(n: int, nonzero: int, f: limb.FieldConst
     """Bytes and IMADs a batch inversion of n entries, `nonzero` of them
     non-zero, needs: each entry read once and written once; three products
     a non-zero entry (the running product, its inverse, the next inverse)
-    and one Fermat inverse for the whole batch. The kernel's chunks each
-    pay a Fermat inverse of their own, which this does not count. One
-    Fermat inverse is also a chain of fermat_products(f) dependent
-    products, a latency floor apart from this bound."""
+    and one inverse for the whole batch, charged as a Fermat inverse's
+    fermat_products(f) products (0.2 % of the IMADs at 2^16 entries). The
+    kernel's chunks each pay an inverse of their own, which this does not
+    count; an inverse is also a chain of dependent steps, a latency floor
+    apart from this bound."""
     return 64 * n, (3 * nonzero + fermat_products(f)) * limb.MONT_IMADS
+
+
+def divstep_constant(f: limb.FieldConst) -> int:
+    """R^3 mod p: the kernel's divsteps invert the word x = aR, and one
+    Montgomery product by this gives x^{-1}·R^3·R^{-1} = a^{-1}R, the
+    Montgomery form of a^{-1}. The divsteps leave no power of two behind:
+    each batch divides (d, e) by 2^30 exactly mod p."""
+    return pow(2, 768, f.params.p)
+
+
+_M32 = (1 << 32) - 1
+_M30 = (1 << 30) - 1
+
+
+def _s32(w: int) -> int:
+    return w - (1 << 32) if w >> 31 else w
+
+
+def _divsteps(zeta: int, f0: int, g0: int) -> tuple[int, tuple]:
+    """csrc/divstep.cuh divsteps_30: DIVSTEP_BATCH divsteps on the low
+    words of f and g in 32-bit arithmetic; the new zeta and the batch's
+    matrix (u, v, q, r) as signed ints."""
+    u, v, q, r, f, g = 1, 0, 0, 1, f0 & _M32, g0 & _M32
+    for _ in range(DIVSTEP_BATCH):
+        mask1 = _M32 if zeta < 0 else 0
+        mask2 = _M32 if g & 1 else 0
+        x = ((f ^ mask1) - mask1) & _M32
+        y = ((u ^ mask1) - mask1) & _M32
+        z = ((v ^ mask1) - mask1) & _M32
+        g = (g + (x & mask2)) & _M32
+        q = (q + (y & mask2)) & _M32
+        r = (r + (z & mask2)) & _M32
+        mask1 &= mask2
+        zeta = (~zeta if mask1 else zeta) - 1
+        f = (f + (g & mask1)) & _M32
+        u = (u + (q & mask1)) & _M32
+        v = (v + (r & mask1)) & _M32
+        g >>= 1
+        u = (u << 1) & _M32
+        v = (v << 1) & _M32
+    return zeta, (_s32(u), _s32(v), _s32(q), _s32(r))
+
+
+def divstep_inverse_model(x: int, f: limb.FieldConst = limb.FR_C) -> int:
+    """The kernel's inverse of one Montgomery word x = aR (0 <= x < p) in
+    Python ints: the word of a^{-1}R, 0 for 0. The same batches, the same
+    count and the same final constant as csrc/divstep.cuh and
+    field_inv.cu mont_inverse; the limb sums the kernel keeps in 64 bits
+    are checked to fit, and g must reach 0."""
+    p = f.params.p
+    inv30 = pow(p, -1, 1 << 30)
+    d, e, fv, g, zeta = 0, 1, p, x, -1
+    for _ in range(DIVSTEP_BATCHES):
+        zeta, (u, v, q, r) = _divsteps(zeta, fv & _M30, g & _M30)
+        assert abs(u) + abs(v) <= 1 << 30 and abs(q) + abs(r) <= 1 << 30
+        # md, me: t·(d, e) + p·(md, me) has 30 zero low bits
+        md = (u if d < 0 else 0) + (v if e < 0 else 0)
+        me = (q if d < 0 else 0) + (r if e < 0 else 0)
+        cd = u * (d & _M30) + v * (e & _M30)
+        ce = q * (d & _M30) + r * (e & _M30)
+        md -= (inv30 * cd + md) & _M30
+        me -= (inv30 * ce + me) & _M30
+        nd, ne = u * d + v * e + p * md, q * d + r * e + p * me
+        nf, ng = u * fv + v * g, q * fv + r * g
+        assert not (nd | ne | nf | ng) & _M30
+        d, e, fv, g = nd >> 30, ne >> 30, nf >> 30, ng >> 30
+        assert -2 * p < d < p and -2 * p < e < p
+    assert g == 0 and (fv in (1, -1) or x == 0)
+    # normalize: d·sign(f) into [0, p)
+    d = (d + p if d < 0 else d) * (-1 if fv < 0 else 1)
+    d = d + p if d < 0 else d
+    assert 0 <= d < p
+    # one Montgomery product by R^3 mod p
+    r_inv = pow(1 << 256, -1, p)
+    return d * divstep_constant(f) * r_inv % p
 
 
 def _check(a: torch.Tensor, who: str) -> None:
@@ -99,8 +189,8 @@ def pow_fixed_plain(a: torch.Tensor, bits, f: limb.FieldConst = limb.FR_C
 def batch_inverse_plain(a: torch.Tensor, f: limb.FieldConst = limb.FR_C
                         ) -> torch.Tensor:
     """The torch version of batch_inverse (any device): the kernel's
-    chunks of chunk_of(m) entries, their running products, one Fermat
-    inverse a chunk, the back-substitution."""
+    chunks of chunk_of(m) entries, their running products, one inverse a
+    chunk (a Fermat inverse here), the back-substitution."""
     x = a.reshape(-1, 8)
     m = x.shape[0]
     c = chunk_of(m)

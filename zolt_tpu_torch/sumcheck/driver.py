@@ -24,7 +24,7 @@ from dataclasses import dataclass, field as dfield
 import torch
 
 from ..field import limb
-from ..field.evals import product_evals, product_evals_plain
+from ..field.evals import product_evals
 from ..field.fold import fold
 from ..field.params import FR
 from ..poly import unipoly
@@ -77,40 +77,23 @@ def verify_sumcheck(proof: SumcheckProof, transcript, claim: int,
     return claim, challenges
 
 
-def _on_kernels(tabs: torch.Tensor) -> bool:
-    """Whether k factor tables take the kernels (k = 2 or 3; any k on the
-    CPU runs the plain versions). A CUDA stack of another k raises: the
-    product-evals kernel has K = 2 and 3 only."""
-    k = tabs.shape[0]
-    if k in (2, 3):
-        return True
-    if tabs.device.type == "cpu":
-        return False
-    raise NotImplementedError(
-        f"a product sumcheck of {k} factors on {tabs.device}: the "
-        f"product-evals kernel has K = 2 and 3 only (ROADMAP Queue 2 A "
-        f"item 3)")
-
-
 class ProductSumcheck:
     """Σ_x Π_k A_k(x) over the boolean cube — the basic multi-MLE instance.
 
-    polys: k (n, 8) Fr word tensors on one device; binds low-to-high (Jolt
-    bound_poly_var_bot). Degree = number of factors. Each round is one
-    product-evals launch (kernels 2-3) and one fold (kernel 1); on the CPU
-    the plain versions, for any k."""
+    polys: k >= 1 (n, 8) Fr word tensors on one device; binds low-to-high
+    (Jolt bound_poly_var_bot). Degree = number of factors. Each round is
+    one product-evals launch (kernels 2-3 for k = 2, 3; kernel G for any
+    other k) and one fold (kernel 1); on the CPU the plain versions."""
 
     def __init__(self, polys):
         self.tabs = torch.stack([p.contiguous() for p in polys])
-        self._kernels = _on_kernels(self.tabs)
         n = self.tabs.shape[1]
         self.num_rounds = n.bit_length() - 1
         self.degree = self.tabs.shape[0]
 
     def round_evals(self) -> list[int]:
         g = (self.tabs, self.tabs.shape[1] // 2, self.degree)
-        ev = product_evals([g])[0] if self._kernels else product_evals_plain(*g)
-        return limb.decode(ev)
+        return limb.decode(product_evals([g])[0])
 
     def bind(self, r: int) -> None:
         self.tabs = fold(self.tabs, r, self.tabs.shape[1] // 2)
@@ -121,14 +104,11 @@ class ProductSumcheck:
 
 def initial_claim_product(polys) -> int:
     """Σ_x Π_k A_k(x) on the tables' device: p(0) + p(1) of the first
-    round's product evals (the plain versions on the CPU for any k). A
-    table of one entry is padded with a zero one, whose pair adds 0 to
-    p(1)."""
+    round's product evals (kernels 2-3 or G on a card, the plain versions
+    on the CPU, for any k >= 1). A table of one entry is padded with a
+    zero one, whose pair adds 0 to p(1)."""
     tabs = torch.stack([p.contiguous() for p in polys])
-    kernels = _on_kernels(tabs)
     if tabs.shape[1] == 1:
         tabs = torch.cat([tabs, torch.zeros_like(tabs)], dim=1)
-    g = (tabs, tabs.shape[1] // 2, 1)
-    ev = limb.decode(product_evals([g])[0] if kernels
-                     else product_evals_plain(*g))
+    ev = limb.decode(product_evals([(tabs, tabs.shape[1] // 2, 1)])[0])
     return (ev[0] + ev[1]) % P
